@@ -5,24 +5,25 @@
 
 Run from the root of a checkout, on a machine with one card, nvcc and
 PyTorch built for CUDA.  It needs no network and imports nothing of JAX.
-Phases, each printing one line:
+Phases, each printing one line or more:
 
 1. card and build: the card's name and power limit (nvidia-smi), then the
-   three kernels built from csrc/ with nvcc for sm_90a, in parallel (build
+   five kernels built from csrc/ with nvcc for sm_90a, in parallel (build
    seconds, ptxas register and spill lines);
-2. kernels: each kernel held bit-exact against its plain PyTorch version on
-   the card at the main path's shapes, with CUDA-event times: the kernel
-   and one library call as device time per call (calls captured in a CUDA
-   graph and replayed), the kernel's wrapper called back to back
-   (``host_ms``: device time plus the host's launch cost), the plain
-   version, and the least time the card could take for the same work
-   (bytes over 3.35 TB/s or operations over the int8 peak of 1,979 TOP/s,
-   H100 SXM data sheet);
-3. main path at the update_1m shape: 2^20 vertices, a 2^23-slot edge
-   table preloaded with 2^21 random edges (out-degree 2, so a giant SCC
-   makes repairs real) and one full recompute, then super-chunks of the
-   paper's mix (add_frac 0.7, vertex ops on) through a GraphClient with
-   SameSCC (1024) and Reachable (32) query batches between them.  The
+2. kernels: each kernel held against its plain PyTorch version on the card
+   at the main paths' shapes (exact for the SMSCC kernels, 3e-2 for bf16
+   and 2e-5 for f32 attention, 1e-5 for the embedding bag), with CUDA-event
+   times: the kernel and one library call as device time per call (calls
+   captured in a CUDA graph and replayed), the kernel's wrapper called back
+   to back (``host_ms``: device time plus the host's launch cost), the
+   plain version, and the least time the card could take for the same work
+   (bytes over 3.35 TB/s, or operations over the peak of their type: int8
+   1,979 TOP/s, bf16 989 TFLOP/s, f32 67 TFLOP/s; H100 SXM data sheet);
+3. SMSCC main path at the update_1m shape: 2^20 vertices, a 2^23-slot
+   edge table preloaded with 2^21 random edges (out-degree 2, so a giant
+   SCC makes repairs real) and one full recompute, then super-chunks of
+   the paper's mix (add_frac 0.7, vertex ops on) through a GraphClient
+   with SameSCC (1024) and Reachable (32) query batches between them.  The
    launch counts are set to 0 just before and read just after; the
    maintained labels must equal a fresh static recompute of the final
    graph;
@@ -31,7 +32,19 @@ Phases, each printing one line:
 5. card vs CPU: one seeded stream at 2^14 vertices and a 2^16-slot table
    through the port on the card and on the CPU (plain versions): per-op
    results, labels and edge sets must be identical;
-6. the kernels line (JSON), the card line, and the device line last.
+6. embedding-bag path: MIND-shaped requests (2^21 x 64 f32 table, 512 bags
+   of 50 ids, ~20% padding) in sum, weighted and mean modes through the
+   wrapper, counted the same way;
+7. LM main path: ``launch.serve.serve_lm`` with Qwen3-14B at full width and
+   depth (40 layers, bf16, random weights from a seeded generator on the
+   card, flash attention): 4 requests of 4096 prompt tokens, then 32
+   greedy decode steps; flash must launch once per layer of the prefill;
+   one more decode step, replayed from a CUDA graph, gives the device's
+   time per step apart from the host's;
+8. LM card vs CPU: the qwen3 and danube smoke configs in f32 (TF32 off),
+   the same weights on both devices through ``carry``, prefill then decode
+   teacher-forced with the CPU's greedy tokens: logits within 2e-4;
+9. the kernels line (JSON), the card line, and the device line last.
 
 Any failed check exits non-zero.  Without a CUDA card it exits 1 before
 printing any result.
@@ -49,6 +62,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 SEED = 0
 
 KERNELS = {
@@ -61,6 +76,12 @@ KERNELS = {
     "bool_matmul": dict(
         source="src/repro_torch/csrc/bool_matmul.cu",
         replaces="src/repro/kernels/reach_blockmm/kernel.py:41"),
+    "flash_attention": dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:81"),
+    "embedding_bag": dict(
+        source="src/repro_torch/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag/kernel.py:45"),
 }
 
 
@@ -127,9 +148,10 @@ def checked_row(row: dict) -> dict:
     return row
 
 
-def bound_ms(n_bytes: float, n_ops: float = 0.0):
+def bound_ms(n_bytes: float, n_ops: float = 0.0,
+             ops_per_s: float = INT8_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT8_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -251,6 +273,180 @@ def kernel_checks(torch, dev) -> dict:
     return out
 
 
+def visible_pairs(s: int, window: int) -> int:
+    """(query, key) pairs causal attention keeps for one head of length s:
+    0 <= i - j < window, window 0 meaning no limit."""
+    w = s if window <= 0 else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def lm_kernel_checks(torch, dev) -> dict:
+    """flash_attention and embedding_bag against their plain versions at
+    the LM and MIND shapes; returns name -> the main path's row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.kernels.embedding_bag import ref as eref
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.kernels.flash_attention import ref as aref
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+
+    # flash_attention: one qwen3-14b prefill layer (the LM main path's
+    # shape), danube's window at a length where it bites, a ragged f32 case
+    rows = []
+    for tag, b, h, hkv, s, d, window, dtype, tol, reps in (
+            ("qwen3-14b prefill layer", 4, 40, 8, 4096, 128, 0,
+             torch.bfloat16, 3e-2, 3),
+            ("h2o-danube-3-4b", 1, 32, 8, 8192, 120, 4096, torch.bfloat16,
+             3e-2, 3),
+            ("ragged f32", 2, 8, 4, 1000, 16, 0, torch.float32, 2e-5, 10)):
+        # q as the LM hands it over: a [B,S,H,D] buffer viewed as [B,H,S,D]
+        bufs = [torch.randn((b, s, n, d), generator=g, device=dev).to(dtype)
+                for n in (h, hkv, hkv)]
+        q, k, v = (x.transpose(1, 2) for x in bufs)
+        got = aops.mha(q, k, v, causal=True, window=window)
+        want = aref.mha(q, k, v, causal=True, window=window)
+        check(bool(torch.isfinite(got).all()), f"flash {tag}: not finite")
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"flash {tag} disagrees with its plain version")
+        acc = {"max_abs_err": float((got.float() - want.float()).abs().max())}
+        del want
+        if dtype != torch.float32:
+            acc.update(flash_f32_checks(torch, aops, aref, bufs, got, window))
+        del got, bufs
+        torch.cuda.empty_cache()
+        # the library yardstick: SDPA on kv repeated to H heads (outside
+        # the timing), causal, or with an explicit band mask for the window
+        kr, vr = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
+        if window > 0:
+            ij = (torch.arange(s, device=dev)[:, None]
+                  - torch.arange(s, device=dev)[None, :])
+            band = (ij >= 0) & (ij < window)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, kr, vr, attn_mask=band)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, kr, vr, is_causal=True)
+        esize = q.element_size()
+        pairs = visible_pairs(s, window)
+        b_ms, b_by = bound_ms(
+            esize * d * s * b * (2 * h + 2 * hkv), 4 * d * pairs * b * h,
+            BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        rows.append(checked_row(dict(
+            shape=f"{tag}: B={b} H={h} Hkv={hkv} S={s} D={d} causal "
+                  f"window={window} {str(dtype).removeprefix('torch.')} "
+                  f"visible_pairs_per_head={pairs}",
+            tolerance=tol, **acc,
+            ms=graph_ms(torch, lambda: aops.mha(q, k, v, window=window),
+                        reps),
+            host_ms=cuda_ms(torch, lambda: aops.mha(q, k, v, window=window),
+                            reps),
+            plain_ms=cuda_ms(torch, lambda: aref.mha(q, k, v, window=window),
+                             2),
+            library_ms=graph_ms(torch, lib, reps), bound_ms=b_ms,
+            bound_by=b_by)))
+        del q, k, v, kr, vr, lib
+        torch.cuda.empty_cache()
+    emit("kernel", name="flash_attention", rows=rows)
+    out["flash_attention"] = rows[0]
+
+    # embedding_bag: MIND's item table (2^21 x 64 f32) and serve_p99 bags
+    # (512 x 50), ~20% padding; sum, weighted sum and mean
+    table, ids = mind_table(torch, dev, g), mind_ids(torch, dev, g)
+    wts = torch.rand(ids.shape, generator=g, device=dev)
+    valid = (ids >= 0) & (ids < table.shape[0])
+    nnz = int(valid.sum())
+    safe_ids = torch.where(valid, ids, torch.zeros_like(ids))
+    n_ids = (ids >= 0).sum(1, keepdim=True).clamp_min(1).float()
+    rows = []
+    for mode, weights in (("sum", None), ("sum", wts), ("mean", None)):
+        got = eops.embedding_bag(table, ids, mode=mode, weights=weights)
+        want = eref.embedding_bag(table, ids, mode=mode, weights=weights)
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+              f"embedding_bag {mode} disagrees with its plain version")
+        # the library yardstick: one F.embedding_bag sum whose per-sample
+        # weights fold in the padding, the weights and the mean's divisor
+        eff = (valid.float() if weights is None else weights * valid) / (
+            n_ids if mode == "mean" else 1.0)
+        b_ms, b_by = bound_ms(ids.numel() * (4 if weights is None else 8)
+                              + nnz * table.shape[1] * 4
+                              + got.numel() * 4)
+        call = (lambda m=mode, w=weights: eops.embedding_bag(
+            table, ids, mode=m, weights=w))
+        rows.append(checked_row(dict(
+            shape=f"{mode}{'' if weights is None else ' weighted'}: "
+                  f"V={table.shape[0]} D={table.shape[1]} B={ids.shape[0]} "
+                  f"L={ids.shape[1]} nnz={nnz}",
+            tolerance=1e-5, max_abs_err=float((got - want).abs().max()),
+            ms=graph_ms(torch, call, 20), host_ms=cuda_ms(torch, call, 20),
+            plain_ms=cuda_ms(torch, lambda m=mode, w=weights:
+                             eref.embedding_bag(table, ids, mode=m,
+                                                weights=w), 20),
+            library_ms=graph_ms(torch, lambda e=eff: F.embedding_bag(
+                safe_ids, table, mode="sum", per_sample_weights=e), 20),
+            bound_ms=b_ms, bound_by=b_by)))
+    emit("kernel", name="embedding_bag", rows=rows)
+    out["embedding_bag"] = rows[1]
+    return out
+
+
+def flash_f32_checks(torch, aops, aref, bufs, got, window) -> dict:
+    """Tight checks of flash at a bf16 shape, where 3e-2 is the size of a
+    typical output (rows late in a 4096-long causal softmax average ~i
+    values and shrink to |out| ~ 0.03): the f32 kernel against the f32
+    plain version on the same (bf16-valued) inputs in the same strided
+    layout at 2e-5, and the bf16 kernel's output against that f32 answer
+    at rtol 1e-2, atol 1e-2 x mean |answer|.  ``margin`` is the largest
+    |error| / (atol + rtol |answer|) (a check passes at <= 1); ``late``
+    reads the last half of the rows alone."""
+    q32, k32, v32 = (x.float().transpose(1, 2) for x in bufs)
+    got32 = aops.mha(q32, k32, v32, causal=True, window=window)
+    want32 = aref.mha(q32, k32, v32, causal=True, window=window)
+    del q32, k32, v32
+    s = want32.shape[2]
+    out = {}
+    tol32 = 2e-5
+    err32 = (got32 - want32).abs()
+    out["f32_tolerance"] = tol32
+    out["f32_max_abs_err"] = float(err32.max())
+    out["f32_margin"] = float((err32 / (tol32 + tol32 * want32.abs())).max())
+    check(torch.allclose(got32, want32, rtol=tol32, atol=tol32),
+          f"flash f32 at {tuple(want32.shape)} disagrees with its plain "
+          f"version by {out['f32_max_abs_err']}")
+    del got32, err32
+    mean_abs = float(want32.abs().mean())
+    rtol, atol = 1e-2, 1e-2 * mean_abs
+    err = (got.float() - want32).abs()
+    margin = err / (atol + rtol * want32.abs())
+    out.update(
+        bf16_vs_f32_rtol=rtol, bf16_vs_f32_atol=atol,
+        mean_abs_out=mean_abs,
+        late_mean_abs_out=float(want32[:, :, s // 2:].abs().mean()),
+        bf16_vs_f32_max_abs_err=float(err.max()),
+        bf16_vs_f32_margin=float(margin.max()),
+        bf16_vs_f32_late_max_abs_err=float(err[:, :, s // 2:].max()))
+    check(out["bf16_vs_f32_margin"] <= 1.0,
+          f"flash bf16 at {tuple(want32.shape)} is off the f32 answer: "
+          f"margin {out['bf16_vs_f32_margin']}")
+    return out
+
+
+def mind_table(torch, dev, g):
+    """MIND's item table: ``n_items`` 2^21 x ``embed_dim`` 64, f32."""
+    return torch.randn((2 ** 21, 64), generator=g, device=dev)
+
+
+def mind_ids(torch, dev, g, n_bags=512, bag_len=50):
+    """One request of ``n_bags`` behaviour bags of ``bag_len`` ids (MIND's
+    serve_p99 batch and seq_len), ~20% of them -1 padding."""
+    ids = torch.randint(0, 2 ** 21, (n_bags, bag_len), generator=g,
+                        device=dev, dtype=torch.int32)
+    ids[torch.rand(ids.shape, generator=g, device=dev) < 0.2] = -1
+    return ids
+
+
 def probe_visits(torch, table, base, u, v, max_probes) -> int:
     """Slots the walk of every lane reads on these inputs (the data-
     dependent byte count of the probe bound)."""
@@ -347,6 +543,108 @@ def serve_path(torch, dev, *, nv, cap, bucket, chunk, n_chunks,
     return rep, svc
 
 
+def bag_path(torch, dev, n_requests=8) -> dict:
+    """The embedding bag's own path (its wrapper is the JAX package's only
+    entry to the kernel): ``n_requests`` MIND-shaped requests, each in sum,
+    weighted and mean mode, counted from 0."""
+    from repro_torch import kernels
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.kernels.embedding_bag import ref as eref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    table = mind_table(torch, dev, g)
+    requests = [mind_ids(torch, dev, g) for _ in range(n_requests)]
+    weights = torch.rand(requests[0].shape, generator=g, device=dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [eops.embedding_bag(table, ids, mode=mode, weights=w)
+            for ids in requests
+            for mode, w in (("sum", None), ("sum", weights), ("mean", None))]
+    sync(torch, dev)
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check(all(o.shape == (512, 64) and bool(torch.isfinite(o).all())
+              for o in outs), "embedding bag path: bad output")
+    want = eref.embedding_bag(table, requests[-1], mode="mean")
+    check(torch.allclose(outs[-1], want, rtol=1e-5, atol=1e-5),
+          "embedding bag path disagrees with its plain version")
+    return {"requests": n_requests, "calls": len(outs), "seconds": seconds,
+            "bags_per_s": len(outs) * 512 / seconds, "launches": launches}
+
+
+def lm_path(torch, dev) -> dict:
+    """Qwen3-14B at full width and depth through ``serve_lm``: 4 requests
+    of 4096 prompt tokens, then 32 greedy decode steps; then one decode
+    step replayed from a CUDA graph for its device time alone."""
+    from repro_torch import kernels
+    from repro_torch.configs import qwen3_14b
+    from repro_torch.launch import serve
+
+    cfg = qwen3_14b.config(attn_impl="flash")
+    batch, prompt, steps = 4, 4096, 32
+    kernels.reset_launch_counts()
+    rep = serve.serve_lm(cfg, steps, batch=batch, prompt_len=prompt,
+                         cache_len=prompt + steps, device=str(dev),
+                         seed=SEED, graph_reps=8)
+    rep["launches"] = kernels.launch_counts()
+    tokens = rep.pop("tokens")
+    rep["tokens_row0"] = tokens[0]
+    check(rep["logits_finite"], "LM logits are not finite")
+    check(len(tokens) == batch and all(
+        len(t) == steps and all(0 <= x < cfg.vocab for x in t)
+        for t in tokens), "LM tokens out of range")
+    check(rep["launches"]["flash_attention"] == cfg.n_layers,
+          f"flash launched {rep['launches']['flash_attention']} times, "
+          f"expected one per layer ({cfg.n_layers})")
+    return rep
+
+
+def lm_card_vs_cpu(torch, dev) -> dict:
+    """The qwen3 and danube smoke configs in f32, one set of weights on
+    both devices through ``carry``; prefill, then decode teacher-forced
+    with the CPU's greedy tokens.  Logits must agree within 2e-4."""
+    import numpy as np
+
+    from repro_torch import carry
+    from repro_torch.configs import h2o_danube_3_4b, qwen3_14b
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch, prompt, steps, tol = 4, 40, 8, 2e-4  # prompt > danube's window
+    out = {}
+    for mod in (qwen3_14b, h2o_danube_3_4b):
+        cfg = mod.smoke_config(attn_impl="flash")
+        tree = carry.lm_params_to_numpy(
+            tf.init(cfg, torch.Generator().manual_seed(SEED), "cpu"))
+        toks = np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (batch, prompt)).astype(np.int32)
+        runs, fed = [], []
+        for d in (torch.device("cpu"), dev):
+            params = carry.lm_params_from_numpy(tree, cfg, d)
+            before = aops.mha.launches
+            cache, last = tf.prefill(params, torch.from_numpy(toks).to(d),
+                                     cfg, cache_len=prompt + steps)
+            seq = [last.cpu()]
+            for i in range(steps):
+                if d.type == "cpu":
+                    fed.append(seq[-1].argmax(-1).to(torch.int32))
+                step, cache = tf.decode_step(params, cache, fed[i].to(d),
+                                             cfg)
+                seq.append(step.cpu())
+            runs.append(torch.stack(seq))
+            if d.type == "cuda":
+                check(aops.mha.launches - before == cfg.n_layers,
+                      f"{cfg.name}: flash did not run in the card's prefill")
+        cpu, card = runs
+        err = float((card - cpu).abs().max())
+        check(torch.allclose(card, cpu, rtol=tol, atol=tol),
+              f"{cfg.name}: card and CPU logits differ by {err}")
+        out[cfg.name] = {"max_abs_err": err, "logits_compared": cpu.numel()}
+    return {"tolerance": tol, "prompt": prompt, "steps": steps, **out}
+
+
 def sync(torch, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -376,6 +674,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kern = kernel_checks(torch, dev)
+    torch.cuda.empty_cache()
+    # before the model is loaded: the plain attention at the qwen3 shape
+    # holds a [4, 40, 4096, 4096] f32 score tensor (10.7 GB)
+    kern.update(lm_kernel_checks(torch, dev))
     emit("kernels_checked", seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
 
@@ -414,9 +716,27 @@ def main() -> int:
          n_results=len(runs["cuda"][0]), **same)
     check(all(same.values()), f"card and CPU runs differ: {same}")
 
+    torch.cuda.empty_cache()
+
+    bag_rep = bag_path(torch, dev)
+    emit("embedding_bag_path", **bag_rep)
+    check(bag_rep["launches"]["embedding_bag"] == bag_rep["calls"],
+          "embedding_bag did not launch on every call of its path")
+    torch.cuda.empty_cache()
+
+    lm_rep = lm_path(torch, dev)
+    emit("lm_main_path", **lm_rep)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    lm_cmp = lm_card_vs_cpu(torch, dev)
+    emit("lm_card_vs_cpu", seconds=time.perf_counter() - t0, **lm_cmp)
+
     launches = {"frontier_min": main_rep["launches"]["frontier_min"],
                 "hash_probe": main_rep["launches"]["hash_probe"],
-                "bool_matmul": dense_rep["launches"]["bool_matmul"]}
+                "bool_matmul": dense_rep["launches"]["bool_matmul"],
+                "flash_attention": lm_rep["launches"]["flash_attention"],
+                "embedding_bag": bag_rep["launches"]["embedding_bag"]}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"], launches=launches[name],

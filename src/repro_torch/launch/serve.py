@@ -1,20 +1,31 @@
-"""Serving driver for the port: the paper's streaming SCC service.
+"""Serving driver for the port: batched LM decode, or the paper's streaming
+SCC service.
 
     python -m repro_torch.launch.serve --steps 64
     python -m repro_torch.launch.serve --steps 8 --device cpu
+    python -m repro_torch.launch.serve --arch qwen3-14b --device cpu --steps 4
 
-A typed GraphClient update stream with SameSCC / Reachable query batches
-between chunks, over an SCCService booted with every vertex slot live.
-Runs on ``cuda`` unless ``--device`` says otherwise.
+``--arch smscc`` (the default): a typed GraphClient update stream with
+SameSCC / Reachable query batches between chunks, over an SCCService
+booted with every vertex slot live.  An LM arch: the arch's smoke config
+with random weights serves one batch of prompts, prefill then greedy
+decode.  Runs on ``cuda`` unless ``--device`` says otherwise.
 """
 from __future__ import annotations
 
 import argparse
+import time
+from typing import Dict
 
+import numpy as np
+import torch
+
+from repro_torch import configs
 from repro_torch.configs import smscc
 from repro_torch.core import graph_state as gs
 from repro_torch.core.service import SCCService
 from repro_torch.launch import stream
+from repro_torch.models import transformer as tf
 
 
 def serve_smscc(steps: int, nv: int = 2048, chunk: int = 256,
@@ -30,12 +41,130 @@ def serve_smscc(steps: int, nv: int = 2048, chunk: int = 256,
     return rep
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_lm(cfg: tf.LMConfig, steps: int = 32, *, batch: int = 4,
+             prompt_len: int = 12, cache_len: int = 64,
+             device: str = gs.DEFAULT_DEVICE, seed: int = 0,
+             graph_reps: int = 0) -> Dict:
+    """Serve ``batch`` random prompts of ``prompt_len`` tokens: one
+    prefill into a ``cache_len`` cache, then ``steps`` greedy decode
+    steps.  Weights are random, drawn on ``device`` from a generator seeded
+    with ``seed``; so are the prompts, from numpy.
+
+    Returns a report: seconds and tokens/s of prefill (prompt tokens) and
+    of decode (generated tokens), the host's seconds per decode step (the
+    time to issue a step; the loop never waits on the device), peak device
+    bytes (None on the CPU), whether the last logits are finite, and the
+    greedy tokens [batch][steps].
+
+    With ``graph_reps`` > 0 on a card, one more decode step is captured in
+    a CUDA graph after the timed loop and replayed ``graph_reps`` times
+    between CUDA events: ``device_s_per_decode_step`` is the device's time
+    for a step with the host's issue cost gone, and
+    ``decode_device_share`` that time over the loop's step time (near 1:
+    the device bounds decode; far below 1: the host does).  The extra step
+    writes the cache's last slot, as a step past the cache does.
+    """
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    params = tf.init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt_len))
+                            .astype(np.int32)).to(dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    t0 = time.perf_counter()
+    cache, logits = tf.prefill(params, toks, cfg, cache_len=cache_len)
+    tok = logits.argmax(-1).to(torch.int32)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+
+    out, host_s = [], 0.0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        t_step = time.perf_counter()
+        out.append(tok)
+        logits, cache = tf.decode_step(params, cache, tok, cfg)
+        tok = logits.argmax(-1).to(torch.int32)
+        host_s += time.perf_counter() - t_step
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    tokens = (torch.stack(out, 1).cpu().tolist() if out
+              else [[] for _ in range(batch)])
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    device_step_s = (_graph_step_s(params, cache, tok, cfg, graph_reps)
+                     if graph_reps > 0 and dev.type == "cuda" else None)
+    return {
+        "arch": cfg.name, "device": str(dev), "dtype": str(cfg.dtype),
+        "attn_impl": cfg.attn_impl, "n_layers": cfg.n_layers,
+        "n_params": cfg.n_params(), "batch": batch,
+        "prompt_len": prompt_len, "cache_len": cache_len, "steps": steps,
+        "init_s": init_s, "prefill_s": prefill_s,
+        "prompt_tok_per_s": batch * prompt_len / prefill_s,
+        "decode_s": decode_s,
+        "decode_tok_per_s": batch * steps / decode_s if steps else None,
+        "host_s_per_decode_step": host_s / steps if steps else None,
+        "device_s_per_decode_step": device_step_s,
+        "decode_device_share": (device_step_s * steps / decode_s
+                                if device_step_s and steps else None),
+        "peak_mem_bytes": peak,
+        "logits_finite": bool(torch.isfinite(logits).all()),
+        "tokens": tokens,
+    }
+
+
+def _graph_step_s(params, cache, tok, cfg: tf.LMConfig, reps: int) -> float:
+    """Device seconds of one decode step: the step captured in a CUDA graph
+    (after one warm-up step on a side stream) and replayed ``reps`` times
+    between CUDA events."""
+    def step():  # as the serving loop's step: decode, then greedy pick
+        tf.decode_step(params, cache, tok, cfg)[0].argmax(-1).to(torch.int32)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps / 1e3
+
+
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smscc")
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--device", default=gs.DEFAULT_DEVICE)
     args = ap.parse_args()
-    serve_smscc(args.steps, device=args.device)
+    mod = configs.get(args.arch)
+    if mod.FAMILY == "lm":
+        rep = serve_lm(mod.smoke_config(), args.steps, device=args.device)
+        print(f"prefill {rep['batch']} x {rep['prompt_len']} tokens in "
+              f"{rep['prefill_s']:.3f}s; decoded {rep['steps']} tokens x "
+              f"batch {rep['batch']} in {rep['decode_s']:.3f}s "
+              f"({rep['decode_tok_per_s']} tok/s) on {rep['device']}")
+        print("sample:", rep["tokens"][0][:16])
+    else:
+        serve_smscc(args.steps, device=args.device)
 
 
 if __name__ == "__main__":

@@ -280,17 +280,37 @@ def test_label_and_priority_propagation(seed, shortcut, max_iters):
     assert tn == int(jn)
 
 
-@pytest.mark.parametrize("seed", SEEDS)
+def _giant_scc_queries(nv=1024, n_sets=2, f=32):
+    """update_1m's shape of graph, small: out-degree 2 to random targets
+    (one giant SCC), and ``n_sets`` Reachable batches of ``f``
+    single-source frontiers, each drawn anew."""
+    rng = np.random.default_rng(7)
+    src = np.repeat(np.arange(nv, dtype=np.int32), 2)
+    dst = rng.integers(0, nv, 2 * nv).astype(np.int32)
+    live, allowed = np.ones(2 * nv, bool), np.ones(nv, bool)
+    batches = []
+    for _ in range(n_sets):
+        seeds = np.zeros((f, nv), bool)
+        seeds[np.arange(f), rng.integers(0, nv, f)] = True
+        batches.append(seeds)
+    return src, dst, live, allowed, batches
+
+
+@pytest.mark.parametrize("seed", SEEDS + ("giant",))
 def test_multi_forward_reach(seed):
-    rng, src, dst, live, allowed, _ = _graph(seed)
-    seeds = rng.random((5, 64)) < 0.03
-    jr, jn = jreach.multi_forward_reach(
-        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(live),
-        jnp.asarray(seeds), jnp.asarray(allowed), 40)
-    tr, tn = treach.multi_forward_reach(_t(src), _t(dst), _t(live),
-                                        _t(seeds), _t(allowed), 40)
-    np.testing.assert_array_equal(_np(tr), np.asarray(jr))
-    assert tn == int(jn)
+    if seed == "giant":  # two seed sets over one giant-SCC graph
+        src, dst, live, allowed, batches = _giant_scc_queries()
+    else:
+        rng, src, dst, live, allowed, _ = _graph(seed)
+        batches = [rng.random((5, 64)) < 0.03]
+    for seeds in batches:
+        jr, jn = jreach.multi_forward_reach(
+            jnp.asarray(src), jnp.asarray(dst), jnp.asarray(live),
+            jnp.asarray(seeds), jnp.asarray(allowed), 40)
+        tr, tn = treach.multi_forward_reach(_t(src), _t(dst), _t(live),
+                                            _t(seeds), _t(allowed), 40)
+        np.testing.assert_array_equal(_np(tr), np.asarray(jr))
+        assert tn == int(jn)
 
 
 # --------------------------------------------------------- static SCC ---
