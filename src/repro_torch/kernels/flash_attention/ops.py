@@ -1,11 +1,15 @@
 """Grouped-query attention wrapper: the plain version for CPU tensors, the
-CUDA kernel (``csrc/flash_attention.cu``) for CUDA tensors.
+CUDA kernels (``csrc/flash_attention.cu``) for CUDA tensors: bf16 on the
+tensor cores (wgmma, TMA), f32 on FMAs.
 
 Replaces ``repro.kernels.flash_attention.ops.mha`` and its TPU kernel
-``flash_one_head``.  The kernel reads the kv head of each query head by
-index (no ``repeat``), takes S as it is (no padding to tile multiples) and
-reads q, k and v through their strides, so a [B,S,H,D] buffer viewed as
-[B,H,S,D] goes in without a copy; the output keeps q's layout.
+``flash_one_head``.  The kernels read the kv head of each query head by
+index (no ``repeat``), take S as it is (no padding to tile multiples) and
+read q, k and v through their strides, so a [B,S,H,D] buffer viewed as
+[B,H,S,D] goes in without a copy; the output keeps q's layout.  TMA reads
+a bf16 tensor only if its base address and strides are multiples of 16
+bytes; a tensor that is not so is first copied to a dense layout, counted
+in ``mha.layout_copies``.
 """
 from __future__ import annotations
 
@@ -63,14 +67,29 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, "q", q, (b, h, s, d))
     _check(k, "k", q, (b, hkv, s, d))
     _check(v, "v", q, (b, hkv, s, d))
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k, v = (_tma_ready(x) for x in (q, k, v))
     out = torch.empty_like(q)  # q's layout, dense
     _build.check(_entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], b, h, hkv, s, d, int(q.dtype == torch.bfloat16),
+        *out.stride()[:3], b, h, hkv, s, d, int(bf16),
         int(causal), int(window), _build.stream_ptr(out)), "flash_attention")
     mha.launches += 1
     return out
 
 
 mha.launches = 0
+mha.layout_copies = 0
+
+TMA_ALIGN = 16  # bytes: TMA's rule for a base address and each stride
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if TMA can read it as it lies, else a dense copy (counted)."""
+    if t.data_ptr() % TMA_ALIGN == 0 and all(
+            st * t.element_size() % TMA_ALIGN == 0 for st in t.stride()[:3]):
+        return t
+    mha.layout_copies += 1
+    return t.clone(memory_format=torch.contiguous_format)

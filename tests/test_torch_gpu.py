@@ -9,7 +9,11 @@ Tolerance is exact equality for the SMSCC kernels, which compute integers
 and booleans.  Attention holds to 2e-5 in f32 and 3e-2 in bf16 (the JAX
 package's own kernel tolerances: the kernel sums in another order and, in
 bf16, does not round the scores to bf16 as the plain version does); the
-embedding bag to 1e-5 in f32.
+embedding bag to 1e-5 in f32.  Since 3e-2 is the size of a typical
+attention output, the bf16 kernel is also held to the f32 answer on the
+same bf16-valued inputs at rtol 1e-2, atol 1e-2 x mean |answer|: a key
+gained or lost at a band edge moves an output by about |v| / window, above
+that limit at the band shapes below.
 """
 import numpy as np
 import pytest
@@ -75,6 +79,20 @@ def test_bool_matmul_kernel(cuda):
         assert torch.equal(bops.bool_matmul(a, b), bref.bool_matmul(a, b))
 
 
+# (m, k, n, density): ragged edges and unaligned rows (byte staging), K past
+# one 128-deep tile, density 1.0 at K=1024 (counts far above 127 must stay
+# exact in s32), the dense tier's R=512 and R=1024
+@pytest.mark.parametrize("m,k,n,density", [
+    (1, 200, 3, 0.5), (70, 130, 90, 0.3), (100, 48, 16, 0.5),
+    (64, 1024, 32, 1.0), (300, 1024, 200, 1.0), (512, 512, 512, 4 / 512),
+    (1024, 1024, 1024, 4 / 1024), (512, 512, 512, 1.0)])
+def test_bool_matmul_kernel_shapes(cuda, m, k, n, density):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = torch.rand((m, k), device=cuda, generator=g) < density
+    b = torch.rand((k, n), device=cuda, generator=g) < density
+    assert torch.equal(bops.bool_matmul(a, b), bref.bool_matmul(a, b))
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 3e-2)])
 def test_flash_attention_kernel(cuda, dtype, tol):
@@ -94,6 +112,60 @@ def test_flash_attention_kernel(cuda, dtype, tol):
         assert got.stride() == q.stride()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+def _bf16_margin(q, k, v, causal, window):
+    """The bf16 kernel's worst error over its limit (rtol 1e-2, atol 1e-2 x
+    mean |answer|) against the f32 plain version on the same values."""
+    got = aops.mha(q, k, v, causal=causal, window=window)
+    want = aref.mha(q.float(), k.float(), v.float(), causal=causal,
+                    window=window)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    atol = 1e-2 * float(want.abs().mean())
+    return float(((got.float() - want).abs()
+                  / (atol + 1e-2 * want.abs())).max())
+
+
+def _bf16_qkv(cuda, b, h, hkv, s, d, seed):
+    """q, k, v as the LM hands them over: [B,S,H,D] buffers viewed as
+    [B,H,S,D]."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(b, s, n, d, device=cuda, generator=g)
+            .to(torch.bfloat16).transpose(1, 2) for n in (h, hkv, hkv)]
+
+
+@pytest.mark.parametrize("d", aops.HEAD_DIMS)
+def test_flash_bf16_head_dims(cuda, d):
+    for b, h, hkv, s, causal, window in ((2, 4, 2, 300, True, 0),
+                                         (1, 2, 1, 150, False, 0)):
+        q, k, v = _bf16_qkv(cuda, b, h, hkv, s, d, d)
+        assert _bf16_margin(q, k, v, causal, window) <= 1.0
+
+
+# (b, h, hkv, s, d, causal, window): |v| / window >= 7.7e-3 at each, above
+# the limit, so a key gained or lost at the band edge fails the check
+@pytest.mark.parametrize("shape", [(1, 4, 2, 333, 120, True, 70),
+                                   (1, 4, 1, 257, 128, False, 50),
+                                   (1, 2, 1, 200, 16, True, 4),
+                                   (2, 40, 8, 1000, 128, True, 129)])
+def test_flash_bf16_band(cuda, shape):
+    b, h, hkv, s, d, causal, window = shape
+    q, k, v = _bf16_qkv(cuda, b, h, hkv, s, d, s)
+    assert _bf16_margin(q, k, v, causal, window) <= 1.0
+
+
+def test_flash_bf16_unaligned_stride_is_copied(cuda):
+    """A row stride of D + 1 elements is no multiple of 16 bytes, which TMA
+    cannot read: the wrapper copies q to a dense layout, once."""
+    b, h, hkv, s, d = 1, 4, 2, 200, 120
+    g = torch.Generator(device=cuda).manual_seed(1)
+    buf = torch.randn(b, h, s, d + 1, device=cuda, generator=g).to(
+        torch.bfloat16)
+    q = buf[..., :d]
+    _, k, v = _bf16_qkv(cuda, b, h, hkv, s, d, 2)
+    before = aops.mha.layout_copies
+    assert _bf16_margin(q, k, v, True, 0) <= 1.0
+    assert aops.mha.layout_copies == before + 1
 
 
 def test_embedding_bag_kernel(cuda):

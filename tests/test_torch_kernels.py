@@ -152,6 +152,17 @@ def test_bool_matmul_matches_xla(seed, m, k, n, density):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("m,k,n", [(40, 70, 24), (3, 33, 130)])
+def test_bool_matmul_dense_matches_pallas_interpret(m, k, n):
+    """Density 1.0: every count is K (not a multiple of 32, the int8 mma's
+    depth), which the card's s32 counts must keep exact too."""
+    a, b = _bool_case(0, m, k, n, 1.0)
+    want = jbops.bool_matmul(jnp.asarray(a), jnp.asarray(b),
+                             impl="pallas_interpret")
+    np.testing.assert_array_equal(tbops.bool_matmul(_t(a), _t(b)).numpy(),
+                                  np.asarray(want))
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_bool_matmul_matches_pallas_interpret(seed):
     a, b = _bool_case(seed, 33, 40, 20, 0.1)

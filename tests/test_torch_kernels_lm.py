@@ -51,6 +51,27 @@ def test_flash_matches_pallas_interpret(case):
                                atol=2e-5)
 
 
+# bf16: FLASH_CASES plus one D=120 case, at the JAX package's own bf16
+# tolerance (tests/test_kernels.py::test_flash_bf16, 3e-2): the plain
+# version rounds the scores to bf16 where the kernel keeps them in f32
+FLASH_BF16_CASES = {**FLASH_CASES, "d120": (1, 4, 2, 50, 120, True, 8)}
+
+
+@pytest.mark.parametrize("case", list(FLASH_BF16_CASES))
+def test_flash_bf16_matches_pallas_interpret(case):
+    b, h, hkv, s, d, causal, window = FLASH_BF16_CASES[case]
+    q, k, v = _qkv(len(case) + 100, b, h, hkv, s, d)
+    want = jfa.mha(*(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+                   causal=causal, window=window, bq=32, bk=32,
+                   impl="pallas_interpret")
+    got = tfa.mha(*(torch.from_numpy(x).to(torch.bfloat16)
+                    for x in (q, k, v)), causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=3e-2, atol=3e-2)
+
+
 def test_flash_whole_tiles_masked_stays_finite():
     """Window 4 with 32-row tiles: for all but the first tile's rows whole
     kv tiles are masked; no row may turn nan."""
