@@ -23,6 +23,11 @@ Phases, each printing one line or more:
    plain version, and the least time the card could take for the same work
    (bytes over 3.35 TB/s, or operations over the peak of their type: int8
    1,979 TOP/s, bf16 989 TFLOP/s, f32 67 TFLOP/s; H100 SXM data sheet);
+   frontier_min also at the main path's own traffic, on update_1m's
+   preloaded graph: one round of each kind (boolean, label, FW/BW pair,
+   packed Reachable batch), the fused kernel and the fused round body
+   beside the unfused body (int64 messages built in torch, then the direct
+   kernel) it replaced, each held to the other exactly;
 3. SMSCC main path at the update_1m shape: 2^20 vertices, a 2^23-slot
    edge table preloaded with 2^21 random edges (out-degree 2, so a giant
    SCC makes repairs real) and one full recompute, then super-chunks of
@@ -221,7 +226,12 @@ def kernel_checks(torch, dev) -> dict:
         rows.append(checked_row(row))
         del msg, got, want, idx, base
     emit("kernel", name="frontier_min", tolerance="exact", rows=rows)
-    out["frontier_min"] = rows[0]
+    del dst
+    torch.cuda.empty_cache()
+    rounds = frontier_round_checks(torch, dev, g)
+    emit("frontier_rounds", tolerance="exact", rows=rounds)
+    # the main path's own form: the fused boolean round at update_1m
+    out["frontier_min"] = rounds[0]
 
     # hash_probe: C 2^23 at 25% load with TOMB chains, B 8192, 64 probes
     cap, n_keys, b, max_probes = 2 ** 23, 2 ** 21, 8192, 64
@@ -295,6 +305,150 @@ def kernel_checks(torch, dev) -> dict:
          exact_checks=exact)
     out["bool_matmul"] = rows[1]
     return out
+
+
+def frontier_round_checks(torch, dev, g, nv=2 ** 20, cap=2 ** 23) -> list:
+    """One round of each kind the SMSCC path runs, on update_1m's preloaded
+    graph (2^20 vertices, 2^23 slots, 2^21 live edges of out-degree 2) at
+    the state a few rounds into its fixpoint: a boolean F=1 round (8192
+    seeds, one update bucket's worth), a label round (the recompute's
+    coloring sweep), the fused FW/BW pair and a packed Reachable batch of
+    32 single-source frontiers.  The fused kernel is held to its plain
+    version and the fused round body to the unfused one (the port's
+    earlier body: int64 messages built in torch over every slot, then the
+    direct ``frontier_min``), both exactly.  Times, all device time from replayed
+    CUDA graphs except ``host_ms`` and ``plain_ms``: the kernel, a whole
+    round body fused (``body_ms``) and unfused (``unfused_body_ms``), and
+    the direct kernel alone on the unfused body's messages
+    (``unfused_kernel_ms``).  The bound counts src, dst (4 B) and live (1 B)
+    per slot, val and out (4 B per vertex and row or packed word)."""
+    import numpy as np
+
+    from repro_torch.configs import smscc
+    from repro_torch.core import graph_state as gs
+    from repro_torch.core import reach
+    from repro_torch.kernels.frontier_expand import ops as fops
+    from repro_torch.kernels.frontier_expand import ref as fref
+
+    pre, seeds = 3, min(8192, nv // 16)
+    rng = np.random.default_rng(SEED)
+    src_np = np.repeat(np.arange(nv, dtype=np.int32), 2)
+    state = gs.from_arrays(smscc.config(n_vertices=nv, edge_capacity=cap),
+                           src_np, rng.integers(0, nv, src_np.shape[0])
+                           .astype(np.int32), device=dev)
+    src, dst, live = gs.edge_coo(state)
+    allowed = state.v_alive
+    n_live = int(live.sum())
+
+    def some(n):
+        m = torch.zeros(nv, dtype=torch.bool, device=dev)
+        m[torch.randint(0, nv, (n,), generator=g, device=dev)] = True
+        return m
+
+    vid = torch.arange(nv, dtype=torch.int32, device=dev)
+    q = 32
+    single = torch.zeros((q, nv), dtype=torch.bool, device=dev)
+    single[torch.arange(q, device=dev),
+           torch.randint(0, nv, (q,), generator=g, device=dev)] = True
+    fw, bw, _ = reach.fused_fw_bw_reach(src, dst, live, some(seeds),
+                                        some(seeds), allowed, pre)
+    cases = (
+        ("boolean F=1", 1, "min", reach.forward_reach(
+            src, dst, live, some(seeds), allowed, pre)[0],
+         lambda r: reach.reach_round(src, dst, live, allowed, r)),
+        ("labels F=1", 1, "min", reach.propagate_min_labels(
+            src, dst, live, vid, allowed, pre)[0],
+         lambda lab: reach.label_round(src, dst, live, allowed, lab)),
+        ("fw/bw pair F=2", 2, "pair", torch.stack([fw, bw]),
+         lambda r: reach.fw_bw_round(src, dst, live, allowed, r)),
+        (f"packed Reachable Q={q} W=1", 1, "or", fops.pack_bits(
+            reach.multi_forward_reach(src, dst, live, single, allowed,
+                                      pre)[0]),
+         lambda b: reach.multi_reach_round(src, dst, live, allowed, b)))
+    rows = []
+    for tag, f, mode, st, body in cases:
+        if mode == "or":
+            val, unfused_st = st, fops.unpack_bits(st, q)
+        else:
+            val = (reach._reached_val(st) if st.dtype == torch.bool
+                   else torch.where(allowed, st, fops.SENT_WORD))
+            unfused_st = st
+        kern = (lambda v=val, m=mode: fops.frontier_gather(
+            src, dst, live, v, nv, mode=m))
+        got = kern()
+        want = fref.frontier_gather(src, dst, live, val.view(f, -1), nv, mode)
+        check(torch.equal(got.view(f, -1), want),
+              f"frontier_gather {tag} disagrees with its plain version")
+        nxt, _ = body(st)
+        old_kind = {"min": "bool" if st.dtype == torch.bool else "labels",
+                    "pair": "pair", "or": "multi"}[mode]
+        old_nxt, _ = unfused_round(torch, fops, old_kind, src, dst, live,
+                                   allowed, unfused_st)
+        check(torch.equal(fops.unpack_bits(nxt, q) if mode == "or" else nxt,
+                          old_nxt),
+              f"fused {tag} round differs from the unfused round")
+        msg = unfused_messages(torch, fops, old_kind, src, dst, live,
+                               allowed, unfused_st)
+        b_ms, b_by = bound_ms(9 * src.shape[0] + 2 * 4 * f * nv)
+        reps = 20
+        rows.append(checked_row(dict(
+            shape=f"{tag}: E={src.shape[0]} live={n_live} NV={nv}, state "
+                  f"after {pre} rounds",
+            max_abs_err=max_abs_err(torch, got.view(f, -1), want),
+            ms=graph_ms(torch, kern, reps), host_ms=cuda_ms(torch, kern, reps),
+            plain_ms=cuda_ms(torch, lambda v=val, m=mode: fref.frontier_gather(
+                src, dst, live, v.view(f, -1), nv, m), 3),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            body_ms=graph_ms(torch, lambda s_=st, b=body: b(s_), reps),
+            unfused_body_ms=graph_ms(
+                torch, lambda s_=unfused_st, k=old_kind: unfused_round(
+                    torch, fops, k, src, dst, live, allowed, s_),
+                3 if mode == "or" else reps),
+            unfused_kernel_ms=graph_ms(
+                torch, lambda: [fops.frontier_min(d_, m_, nv)
+                                for d_, m_ in msg],
+                3 if mode == "or" else reps))))
+        del msg, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def unfused_messages(torch, fops, kind, src, dst, live, allowed, st):
+    """The unfused round's (dst, message) pairs, as ``core/reach.py`` built
+    them before the gather moved into the kernel: int64 over every edge
+    slot."""
+    sent = fops.SENTINEL
+
+    def msg_of(mask):
+        return (~mask).long() * sent
+
+    if kind == "bool":
+        return [(dst, msg_of(st[src] & live))]
+    if kind == "labels":
+        return [(dst, torch.where(live & allowed[src], st[src].long(),
+                                  sent))]
+    if kind == "pair":
+        return [(dst, msg_of(st[0][src] & live)),
+                (src, msg_of(st[1][dst] & live))]
+    return [(dst, msg_of(st[:, src] & live[None, :]))]
+
+
+def unfused_round(torch, fops, kind, src, dst, live, allowed, st):
+    """The unfused round bodies: ``unfused_messages``, the direct
+    ``frontier_min`` of each, then the same update.  Returns (next,
+    changed)."""
+    nv = allowed.shape[0]
+    inc = [fops.frontier_min(d, m, nv) for d, m in
+           unfused_messages(torch, fops, kind, src, dst, live, allowed, st)]
+    if kind == "labels":
+        low = inc[0].clamp(max=2 ** 31 - 1).int()
+        nxt = torch.where(allowed, torch.minimum(st, low), st)
+    elif kind == "pair":
+        nxt = st | (torch.stack([inc[0] == 0, inc[1] == 0])
+                    & allowed[None, :])
+    else:
+        nxt = st | ((inc[0] == 0) & allowed)
+    return nxt, (nxt != st).any()
 
 
 def visible_pairs(s: int, window: int) -> int:

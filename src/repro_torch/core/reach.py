@@ -1,14 +1,21 @@
 """Masked multi-source reachability: round-synchronous frontier sweeps.
 
 Mirrors ``repro.core.reach``.  Every round's reduction is one segment-min
-of per-edge messages into destination vertices, routed through
-:func:`repro_torch.kernels.frontier_expand.ops.frontier_min`; booleans ride
-the min-semiring (reached -> 0, blocked -> SENTINEL).  Messages are uint32
-values carried in int64.
+of per-edge messages into destination vertices; booleans ride the
+min-semiring (reached -> 0, blocked -> SENTINEL).  The JAX package builds
+the E-sized message array and then reduces it; here each round hands the
+kernel a vertex-sized array of uint32 values in 32-bit words and the
+kernel gathers the message of each edge itself
+(:func:`repro_torch.kernels.frontier_expand.ops.frontier_gather`).  A
+Reachable batch keeps its Q frontiers packed 32 to a word and ORs them
+(min over 0 / SENTINEL messages is OR over reached bits), unpacking once
+at the end.
 
-``_fixpoint`` is Python control flow: each round reads its ``changed``
-flag back from the device (one counted host sync per round).  Round counts
-and the ``max_iters`` cap are exactly those of the JAX while loop.
+Each round is a module-level function ``*_round(..., state) -> (state,
+changed)``.  ``_fixpoint`` is Python control flow: each round reads its
+``changed`` flag back from the device (one counted host sync per round).
+Round counts and the ``max_iters`` cap are exactly those of the JAX while
+loop.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ from repro_torch.core.edge_table import mul32
 from repro_torch.core.sync import SYNCS
 from repro_torch.kernels.frontier_expand import ops as frontier
 
-SENT = frontier.SENTINEL
+SENT_WORD = frontier.SENT_WORD  # SENTINEL as a 32-bit word
 INT32_MAX = 2 ** 31 - 1
 
 
@@ -34,24 +41,26 @@ def _fixpoint(body, init, max_iters: int):
     return state, it
 
 
-def _reached_msg(mask: torch.Tensor) -> torch.Tensor:
-    """0 where ``mask``, SENTINEL elsewhere, as int64 messages."""
-    return (~mask).long() * SENT
+def _reached_val(mask: torch.Tensor) -> torch.Tensor:
+    """0 where ``mask``, SENTINEL elsewhere, as 32-bit words."""
+    return mask.int() - 1
+
+
+def reach_round(src, dst, live, allowed, reached, impl: str = "auto"):
+    """One round of :func:`forward_reach`: (next, changed)."""
+    incoming = frontier.frontier_gather(src, dst, live, _reached_val(reached),
+                                        allowed.shape[0], impl=impl)
+    nxt = reached | ((incoming == 0) & allowed)
+    return nxt, (nxt != reached).any()
 
 
 def forward_reach(src, dst, live, seeds, allowed, max_iters: int,
                   impl: str = "auto"):
     """bool[NV]: vertices reachable from ``seeds`` along live edges,
     staying inside ``allowed``.  Returns (reached, rounds)."""
-    nv = seeds.shape[0]
-
-    def body(reached):
-        incoming = frontier.frontier_min(
-            dst, _reached_msg(reached[src] & live), nv, impl=impl)
-        nxt = reached | ((incoming == 0) & allowed)
-        return nxt, (nxt != reached).any()
-
-    return _fixpoint(body, seeds & allowed, max_iters)
+    return _fixpoint(
+        lambda r: reach_round(src, dst, live, allowed, r, impl),
+        seeds & allowed, max_iters)
 
 
 def backward_reach(src, dst, live, seeds, allowed, max_iters: int,
@@ -59,6 +68,24 @@ def backward_reach(src, dst, live, seeds, allowed, max_iters: int,
     """Reachability along reversed edges."""
     return forward_reach(dst, src, live, seeds, allowed, max_iters,
                          impl=impl)
+
+
+def label_round(src, dst, live, allowed, lab, shortcut: bool = False,
+                impl: str = "auto"):
+    """One round of :func:`propagate_min_labels`: (next, changed).  int32
+    labels are their own uint32 words; an incoming word read as a negative
+    int32 is a uint32 >= 2^31 and clamps to INT32_MAX, as JAX's
+    ``minimum(incoming, INT32_MAX)`` does."""
+    nv = lab.shape[0]
+    incoming = frontier.frontier_gather(
+        src, dst, live, torch.where(allowed, lab, SENT_WORD), nv, impl=impl)
+    incoming = torch.where(incoming < 0, INT32_MAX, incoming)
+    nxt = torch.where(allowed, torch.minimum(lab, incoming), lab)
+    if shortcut:
+        hop = nxt[nxt.clamp(0, nv - 1)]
+        nxt = torch.where(allowed & (nxt < INT32_MAX),
+                          torch.minimum(nxt, hop), nxt)
+    return nxt, (nxt != lab).any()
 
 
 def propagate_min_labels(src, dst, live, labels, allowed, max_iters: int,
@@ -69,40 +96,38 @@ def propagate_min_labels(src, dst, live, labels, allowed, max_iters: int,
     messages; the incoming minimum is clamped back to INT32_MAX.
     ``shortcut`` adds pointer doubling lab[v] <- min(lab[v], lab[lab[v]]).
     Returns (labels, rounds)."""
-    nv = labels.shape[0]
+    return _fixpoint(
+        lambda lab: label_round(src, dst, live, allowed, lab, shortcut,
+                                impl),
+        labels, max_iters)
 
-    def body(lab):
-        msg = torch.where(live & allowed[src], lab[src].long(), SENT)
-        incoming = frontier.frontier_min(dst, msg, nv, impl=impl)
-        incoming = incoming.clamp(max=INT32_MAX).int()
-        nxt = torch.where(allowed, torch.minimum(lab, incoming), lab)
-        if shortcut:
-            hop = nxt[nxt.clamp(0, nv - 1)]
-            nxt = torch.where(allowed & (nxt < INT32_MAX),
-                              torch.minimum(nxt, hop), nxt)
-        return nxt, (nxt != lab).any()
 
-    return _fixpoint(body, labels, max_iters)
+def multi_reach_round(src, dst, live, allowed, bits, impl: str = "auto"):
+    """One round of :func:`multi_forward_reach` on packed frontiers
+    (int32 words [W, NV]): (next, changed)."""
+    incoming = frontier.frontier_gather(src, dst, live, bits,
+                                        allowed.shape[0], mode="or",
+                                        impl=impl)
+    # all 32 bits where allowed (word -1), none elsewhere
+    nxt = bits | (incoming & -allowed.int())
+    return nxt, (nxt != bits).any()
 
 
 def multi_forward_reach(src, dst, live, seeds, allowed, max_iters: int,
                         impl: str = "auto"):
     """Batched reachability: seeds/result are bool[Q, NV]; the Q axis is
-    the kernel's frontier dimension."""
-    nv = seeds.shape[1]
-
-    def body(reached):
-        msg = _reached_msg(reached[:, src] & live[None, :])
-        incoming = frontier.frontier_min(dst, msg, nv, impl=impl)
-        nxt = reached | ((incoming == 0) & allowed[None, :])
-        return nxt, (nxt != reached).any()
-
-    return _fixpoint(body, seeds & allowed[None, :], max_iters)
+    the kernel's frontier dimension, packed 32 frontiers to a word for the
+    fixpoint and unpacked once at its end."""
+    bits, rounds = _fixpoint(
+        lambda b: multi_reach_round(src, dst, live, allowed, b, impl),
+        frontier.pack_bits(seeds & allowed[None, :]), max_iters)
+    return frontier.unpack_bits(bits, seeds.shape[0]), rounds
 
 
 # Bijective priority hash (odd multiplier mod 2^32) and its inverse: the
 # JAX package's hashed priorities, so pointer doubling collapses monotone
-# id runs.
+# id runs.  Priorities use all 32 bits and are held as uint32 values in
+# int64, so torch compares them unsigned; they pass to the kernel as words.
 P_MUL = 0x9E3779B1
 P_INV = pow(P_MUL, -1, 2 ** 32)
 PRIO_SENT = 0xFFFFFFFF
@@ -116,8 +141,22 @@ def _prio(v: torch.Tensor) -> torch.Tensor:
 def _unprio(p: torch.Tensor) -> torch.Tensor:
     """The inverse hash as int32 with two's-complement wrap, as JAX's
     uint32 -> int32 astype gives it."""
-    x = mul32(p, P_INV)
-    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).int()
+    return frontier.u32_to_words(mul32(p, P_INV))
+
+
+def prio_round(src, dst, live, active, lab, impl: str = "auto"):
+    """One round of :func:`propagate_min_prio` (lab: uint32 in int64):
+    (next, changed)."""
+    nv = active.shape[0]
+    incoming = frontier.words_to_u32(frontier.frontier_gather(
+        src, dst, live,
+        frontier.u32_to_words(torch.where(active, lab, PRIO_SENT)), nv,
+        impl=impl))
+    nxt = torch.where(active, torch.minimum(lab, incoming), lab)
+    hop = nxt[_unprio(nxt).clamp(0, nv - 1)]
+    nxt = torch.where(active & (nxt != PRIO_SENT),
+                      torch.minimum(nxt, hop), nxt)
+    return nxt, (nxt != lab).any()
 
 
 def propagate_min_prio(src, dst, live, active, max_iters: int,
@@ -131,36 +170,29 @@ def propagate_min_prio(src, dst, live, active, max_iters: int,
         raise ValueError("vertex ids must stay below the priority sentinel")
     vid = torch.arange(nv, dtype=torch.int32, device=active.device)
     lab0 = torch.where(active, _prio(vid), PRIO_SENT)
-
-    def body(lab):
-        msg = torch.where(live & active[src], lab[src], PRIO_SENT)
-        incoming = frontier.frontier_min(dst, msg, nv, impl=impl)
-        nxt = torch.where(active, torch.minimum(lab, incoming), lab)
-        hop = nxt[_unprio(nxt).clamp(0, nv - 1)]
-        nxt = torch.where(active & (nxt != PRIO_SENT),
-                          torch.minimum(nxt, hop), nxt)
-        return nxt, (nxt != lab).any()
-
-    lab, rounds = _fixpoint(body, lab0, max_iters)
+    lab, rounds = _fixpoint(
+        lambda lab: prio_round(src, dst, live, active, lab, impl),
+        lab0, max_iters)
     witness = torch.where(lab != PRIO_SENT, _unprio(lab), nv)
     return witness, rounds
+
+
+def fw_bw_round(src, dst, live, allowed, reached, impl: str = "auto"):
+    """One round of :func:`fused_fw_bw_reach` on the stacked [2, NV]
+    frontier, both directions in one launch: (next, changed)."""
+    incoming = frontier.frontier_gather(src, dst, live,
+                                        _reached_val(reached),
+                                        allowed.shape[0], mode="pair",
+                                        impl=impl)
+    nxt = reached | ((incoming == 0) & allowed[None, :])
+    return nxt, (nxt != reached).any()
 
 
 def fused_fw_bw_reach(src, dst, live, seed_f, seed_b, allowed,
                       max_iters: int, impl: str = "auto"):
     """FW(seed_f) and BW(seed_b) in one fixpoint over a stacked [2, NV]
     frontier.  Returns (fw, bw, rounds)."""
-    nv = allowed.shape[0]
-
-    def body(reached):
-        inc_f = frontier.frontier_min(
-            dst, _reached_msg(reached[0][src] & live), nv, impl=impl)
-        inc_b = frontier.frontier_min(
-            src, _reached_msg(reached[1][dst] & live), nv, impl=impl)
-        new = torch.stack([inc_f == 0, inc_b == 0])
-        nxt = reached | (new & allowed[None, :])
-        return nxt, (nxt != reached).any()
-
     reached, rounds = _fixpoint(
-        body, torch.stack([seed_f & allowed, seed_b & allowed]), max_iters)
+        lambda r: fw_bw_round(src, dst, live, allowed, r, impl),
+        torch.stack([seed_f & allowed, seed_b & allowed]), max_iters)
     return reached[0], reached[1], rounds

@@ -3,7 +3,11 @@
 
 Replaces ``repro.kernels.embedding_bag.ops.embedding_bag`` and its TPU
 kernel ``embedding_bag_counts``.  The kernel gathers the rows each bag
-names instead of sweeping the vocabulary, so nothing is padded.
+names instead of sweeping the vocabulary, so nothing is padded.  It reads
+rows in 16-byte chunks where D is a multiple of 4 and the table's base is
+16-byte aligned, and in 4-byte chunks otherwise (any D, any table view
+that is contiguous): an unaligned table takes the scalar path, it is not
+refused.
 """
 from __future__ import annotations
 
@@ -20,10 +24,16 @@ from repro_torch.kernels.embedding_bag import ref
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.load("embedding_bag").embedding_bag_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def vector_rows(table: torch.Tensor) -> bool:
+    """Whether the kernel reads ``table`` in 16-byte chunks: D a multiple
+    of 4 (rows start 16 bytes apart) and a 16-byte-aligned base."""
+    return table.shape[1] % 4 == 0 and table.data_ptr() % 16 == 0
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor, *,
@@ -50,7 +60,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, *,
     _build.check(_entry()(
         ids.data_ptr(), None if weights is None else weights.data_ptr(),
         table.data_ptr(), out.data_ptr(), b, l, v, d, int(mode == "mean"),
-        _build.stream_ptr(out)), "embedding_bag")
+        int(vector_rows(table)), _build.stream_ptr(out)), "embedding_bag")
     embedding_bag.launches += 1
     return out
 

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.core import graph_state as tgs
+from repro_torch.core import reach as treach
 from repro_torch.core.service import SCCService
 from repro_torch.kernels.frontier_expand import ops as fops
 from repro_torch.kernels.frontier_expand import ref as fref
@@ -53,6 +54,72 @@ def test_frontier_min_kernel(cuda):
         got = fops.frontier_min(dst, msg, nv)
         torch.testing.assert_close(got, fref.frontier_min(dst, msg, nv),
                                    rtol=0, atol=0)
+
+
+def _gather_case(seed, e, nv, rows, mode):
+    """Edges with -1 padding and ids past nv in src and dst, a quarter of
+    them live; values with the top bit set, SENTINEL words, or packed
+    frontier bits."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(-1, nv + 3, e).astype(np.int32)
+    dst = rng.integers(-1, nv + 3, e).astype(np.int32)
+    live = rng.random(e) < 0.25
+    if mode == "or":
+        val = rng.integers(0, 2 ** 32, (rows, nv), dtype=np.uint64)
+        val[rng.random((rows, nv)) < 0.7] = 0
+    else:
+        val = rng.integers(0, 2 ** 32, (rows, nv), dtype=np.uint64)
+        val[rng.random((rows, nv)) < 0.4] = fref.SENTINEL
+    return src, dst, live, val.astype(np.uint32).view(np.int32)
+
+
+# (mode, rows, e, nv): ragged E, F > 1 in min mode, the FW/BW pair, packed
+# Q in {1, 31, 32, 33, 64} (W = 1, 1, 1, 2, 2 words), no edges
+@pytest.mark.parametrize("mode,rows,e,nv", [
+    ("min", 1, 5003, 300), ("min", 3, 1000, 64), ("min", 1, 0, 10),
+    ("pair", 2, 4099, 257), ("or", 1, 5003, 300), ("or", 2, 3001, 129),
+    ("or", 2, 77, 5)])
+def test_frontier_gather_kernel(cuda, mode, rows, e, nv):
+    src, dst, live, val = _gather_case(e + nv, e, nv, rows, mode)
+    args = [torch.from_numpy(x).to(cuda) for x in (src, dst, live, val)]
+    got = fops.frontier_gather(*args, nv, mode=mode)
+    assert got.dtype == torch.int32 and got.shape == (rows, nv)
+    assert torch.equal(got, fref.frontier_gather(*args, nv, mode))
+    args[2] = torch.zeros_like(args[2])  # every edge dead
+    dead = fops.frontier_gather(*args, nv, mode=mode)
+    assert torch.equal(dead, torch.full_like(dead, 0 if mode == "or" else -1))
+
+
+@pytest.mark.parametrize("q", [1, 31, 32, 33, 64])
+def test_reach_on_card_matches_cpu(cuda, q):
+    """Every reach.py sweep on the card against the same sweep on the CPU
+    (plain versions): results and round counts, bit for bit."""
+    rng = np.random.default_rng(q)
+    nv, e = 2000, 6000
+    src = rng.integers(0, nv, e).astype(np.int32)
+    dst = rng.integers(0, nv, e).astype(np.int32)
+    src[::97] = -1  # junk slots, dead as in the edge table
+    live = (rng.random(e) < 0.9) & (src >= 0)
+    allowed = rng.random(nv) < 0.95
+    seeds = rng.random((q, nv)) < 2.0 / nv
+    labels = np.where(allowed, np.arange(nv), 2 ** 31 - 1).astype(np.int32)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        s, d, lv, al, sd, lab = (torch.from_numpy(x).to(dev) for x in (
+            src, dst, live, allowed, seeds, labels))
+        out = [treach.multi_forward_reach(s, d, lv, sd, al, 300),
+               treach.forward_reach(s, d, lv, sd[0], al, 300),
+               treach.fused_fw_bw_reach(s, d, lv, sd[0], sd[-1], al, 300),
+               treach.propagate_min_labels(s, d, lv, lab, al, 300),
+               treach.propagate_min_labels(s, d, lv, lab, al, 300,
+                                           shortcut=True),
+               treach.propagate_min_prio(s, d, lv, al, 300)]
+        runs.append([[x.cpu() if isinstance(x, torch.Tensor) else x
+                      for x in r] for r in out])
+    for card, cpu in zip(*runs):
+        for a, b in zip(card, cpu):
+            assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                    else a == b)
 
 
 def test_probe_kernel(cuda):
@@ -183,6 +250,33 @@ def test_embedding_bag_kernel(cuda):
                     eref.embedding_bag(table, ids, mode=mode,
                                        weights=weights),
                     rtol=1e-5, atol=1e-5)
+
+
+# (b, l, v, d, offset): D not a multiple of 4 (4-byte chunks), D past one
+# block of 16-byte chunks (column tiles), L past one staging pass, and a
+# table whose base sits 4 bytes past 16-byte alignment (4-byte chunks)
+@pytest.mark.parametrize("b,l,v,d,offset", [
+    (37, 50, 1000, 7, 0), (9, 70, 500, 13, 0), (4, 300, 200, 64, 0),
+    (3, 5, 50, 1100, 0), (20, 50, 1000, 64, 1), (6, 1, 30, 256, 0),
+    (5, 40, 60, 257, 0)])
+def test_embedding_bag_kernel_shapes(cuda, b, l, v, d, offset):
+    g = torch.Generator(device=cuda).manual_seed(b * l + d)
+    table = torch.randn(v * d + offset, device=cuda, generator=g)[
+        offset:].view(v, d)
+    assert eops.vector_rows(table) == (d % 4 == 0 and offset == 0)
+    ids = torch.randint(-3, v + 100, (b, l), device=cuda, generator=g,
+                        dtype=torch.int32)
+    w = torch.rand(b, l, device=cuda, generator=g)
+    for mode in ("sum", "mean"):
+        for weights in (None, w):
+            got = eops.embedding_bag(table, ids, mode=mode, weights=weights)
+            torch.testing.assert_close(
+                got, eref.embedding_bag(table, ids, mode=mode,
+                                        weights=weights),
+                rtol=1e-5, atol=1e-5)
+            # a fixed reduction order: a second call gives the same bits
+            assert torch.equal(got, eops.embedding_bag(
+                table, ids, mode=mode, weights=weights))
 
 
 def test_plain_impl_on_cuda_raises(cuda):

@@ -114,6 +114,26 @@ def test_embedding_bag_matches_pallas_interpret(mode, weighted, b, l, v, d):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("d", [7, 64, 256])
+@pytest.mark.parametrize("l", [1, 50, 70])
+def test_embedding_bag_widths_and_lengths(d, l):
+    """The widths and bag lengths the card's kernel splits differently: D
+    not a multiple of 4 (4-byte chunks), MIND's 64 and 256 (16-byte
+    chunks), a single id, MIND's 50 and a bag past 64 ids."""
+    table, ids, weights = _bag_case(d + l, 6, l, 40, d)
+    for mode, w in (("sum", None), ("sum", weights), ("mean", None)):
+        want = jeb.embedding_bag(
+            jnp.asarray(table), jnp.asarray(ids), mode=mode,
+            weights=None if w is None else jnp.asarray(w), bb=8, bv=64,
+            impl="pallas_interpret")
+        got = teb.embedding_bag(torch.from_numpy(table),
+                                torch.from_numpy(ids), mode=mode,
+                                weights=None if w is None
+                                else torch.from_numpy(w))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+
+
 def test_embedding_bag_max_mode_raises():
     table, ids, _ = _bag_case(0, 2, 3, 10, 4)
     with pytest.raises(ValueError, match="not supported"):
