@@ -28,6 +28,13 @@ Phases, each printing one line or more:
    packed Reachable batch), the fused kernel and the fused round body
    beside the unfused body (int64 messages built in torch, then the direct
    kernel) it replaced, each held to the other exactly;
+   the edge table's write path at update_1m's table (2^23 slots, 2^21
+   edges, a quarter removed): the boot insert, an 8192-lane insert with
+   duplicates and an enable mask, an 8192-lane remove, compact, rehash to
+   2^24 and an insert into a table at ~95% load with failed lanes, each
+   ``et.*`` call (the kernel) held exactly to the parent's path (the plain
+   rounds) on the card, with its rounds, device, kernel, host and plain
+   times and its byte bound;
 3. SMSCC main path at the update_1m shape: 2^20 vertices, a 2^23-slot
    edge table preloaded with 2^21 random edges (out-degree 2, so a giant
    SCC makes repairs real) and one full recompute, then super-chunks of
@@ -451,6 +458,255 @@ def unfused_round(torch, fops, kind, src, dst, live, allowed, st):
     return nxt, (nxt != st).any()
 
 
+def edge_table_checks(torch, dev, g, nv=2 ** 20, cap=2 ** 23, b=8192,
+                      max_probes=64, hi_cap=2 ** 20) -> list:
+    """The edge table's write path at update_1m's table (2^23 slots, 2^21
+    random edges of out-degree 2, a quarter of them then removed so TOMB
+    chains run through it): the boot insert of the 2^21 edges, an 8192-lane
+    insert with ~10% intra-batch duplicates and an enable mask, an
+    8192-lane remove with duplicates, ``compact``, ``rehash`` to 2^24, and
+    an 8192-lane insert into a 2^20-slot table at ~95% load, whose lanes
+    partly fail.  Each ``et.*`` call on the card is held exactly to the
+    parent's path on the same inputs (its dedupe and the clones around the
+    plain hash, walk and rounds, a host read per round), and the kernel
+    alone to its plain version on the same columns and lanes: all three
+    columns and every flag (``max_abs_err``, ``kernel_max_abs_err``: the
+    largest |kernel - plain| over them).
+
+    The whole call: ``ms``, its device time from a replayed CUDA graph;
+    ``host_ms``, the call back to back; ``plain_ms``, the parent's path;
+    for inserts the dedupe (``dedupe_ms``), and for inserts and rehashes
+    the parent's dedupe (``parent_dedupe_ms``; a rehash no longer runs
+    one) and the torch hash the kernel replaced (``torch_hash_ms``).  Its
+    bound: the kernel's bytes + 18 C for an insert's clones read and
+    written (2 C for remove's state; 9 C written for a rehash's fresh
+    table).
+
+    The kernel alone: ``kernel_ms`` (a graph of column copies and the
+    launch, less one of the copies), ``kernel_host_ms`` and
+    ``kernel_plain_ms`` (its plain version) the same way with CUDA events
+    around calls.  Its bound: bytes, 11 B per lane (u, v, enable in, two
+    flags out; 10 for remove) + 9 B per slot the lookup walks + 1 B per
+    lane that wants a slot and 9 B per placed lane (1 B per removed
+    lane).  ``launches``: the ``hash_probe`` launches of one call."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.core import edge_table as et
+    from repro_torch.kernels.hash_probe import ops as hops
+    from repro_torch.kernels.hash_probe import ref as href
+
+    rng = np.random.default_rng(SEED)
+    n = 2 * nv
+    src = torch.from_numpy(np.repeat(np.arange(nv, dtype=np.int32), 2)).to(
+        dev)
+    dst = torch.from_numpy(rng.integers(0, nv, n).astype(np.int32)).to(dev)
+    rows = []
+
+    def lanes(k, pool_u, pool_v, dup=0.1):
+        """k lanes: half keys from the pools, half random, then ~dup of
+        the lanes repeating an earlier lane's key."""
+        pick = torch.randint(0, pool_u.shape[0], (k,), generator=g,
+                             device=dev)
+        fresh = torch.rand(k, generator=g, device=dev) < 0.5
+        u = torch.where(fresh, torch.randint(0, nv, (k,), generator=g,
+                                             device=dev, dtype=torch.int32),
+                        pool_u[pick])
+        v = torch.where(fresh, torch.randint(0, nv, (k,), generator=g,
+                                             device=dev, dtype=torch.int32),
+                        pool_v[pick])
+        rep = torch.rand(k, generator=g, device=dev) < dup
+        earlier = (torch.rand(k, generator=g, device=dev)
+                   * torch.arange(k, device=dev)).long()
+        return torch.where(rep, u[earlier], u), torch.where(rep, v[earlier], v)
+
+    def run(tag, kind, table, u, v, mp, enable=None, new_cap=None,
+            reps=10):
+        c_out = new_cap or table.src.shape[0]
+        # the kernel's operands: lanes, enable flags, the table written into
+        if kind == "rehash":
+            ku, kv, raw = table.src, table.dst, table.state == et.LIVE
+            into = et.empty(c_out, dev)
+        else:
+            ku, kv, into = u, v, table
+            raw = (torch.ones(u.shape[0], dtype=torch.bool, device=dev)
+                   if enable is None else enable)
+
+        def call():
+            if kind == "remove":
+                return et.remove(table, u, v, mp, enable)
+            if kind == "rehash":
+                return et.rehash(table, c_out, mp)
+            return et.insert(table, u, v, mp, enable)
+
+        def plain():
+            if kind == "remove":
+                return plain_remove(torch, et, href, table, u, v, mp, enable)
+            if kind == "rehash":
+                return plain_rehash(torch, et, href, table, c_out, mp)
+            return plain_insert(torch, et, href, table, u, v, mp, enable)
+
+        def tensors(out):  # columns, then flags
+            return list(out) if kind == "rehash" else [*out[0], *out[1:]]
+
+        before = kernels.launch_counts()["hash_probe"]
+        got = call()
+        launches = kernels.launch_counts()["hash_probe"] - before
+        pairs = list(zip(tensors(got), tensors(plain())))
+        equal = all(torch.equal(a, b_) for a, b_ in pairs)
+        check(equal, f"edge table {tag}: kernel differs from the plain path")
+        err = max(max_abs_err(torch, a, b_) for a, b_ in pairs)
+
+        en = raw & ~et._dedupe(ku, kv, raw) if kind == "insert" else raw
+        wrapper, plain_fn = ((hops.remove, href.remove) if kind == "remove"
+                             else (hops.insert, href.insert))
+        bufs = [c.clone() for c in into]
+
+        def copy():
+            for b_, c in zip(bufs, into):
+                b_.copy_(c)
+
+        def launch(fn=wrapper):
+            return fn(*bufs, ku, kv, en, max_probes=mp)
+
+        def flags(o):  # removed, or placed, failed and rounds
+            return [o] if kind == "remove" else list(o)
+
+        copy()
+        want_out = flags(launch(plain_fn)) + [c.clone() for c in bufs]
+        copy()
+        out = launch()
+        k_pairs = list(zip(flags(out) + bufs, want_out))
+        k_equal = all(torch.equal(a, b_) for a, b_ in k_pairs)
+        check(k_equal, f"edge table {tag}: kernel alone differs from its "
+                       f"plain version")
+        k_err = max(max_abs_err(torch, a, b_) for a, b_ in k_pairs)
+        visited = probe_visits(torch, into, et._hash(ku, kv, c_out), ku, kv,
+                               mp, en)
+        lanes_n = ku.shape[0]
+        if kind == "remove":
+            counts = {"removed": int(out.sum())}
+            k_bytes = 10 * lanes_n + 9 * visited + counts["removed"]
+            k_formula = "10 B + 9 visited + removed"
+            c_bytes, c_formula = 2 * c_out + k_bytes, "2 C + kernel bytes"
+        else:
+            placed, failed = int(out[0].sum()), int(out[1].sum())
+            counts = dict(
+                rounds=int(out[2]),
+                placed=placed, failed=failed,
+                parent_dedupe_ms=graph_ms(
+                    torch, lambda: parent_dedupe(torch, ku, kv, raw), reps),
+                torch_hash_ms=graph_ms(
+                    torch, lambda: et._hash(ku, kv, c_out), reps))
+            if kind == "insert":
+                counts["dedupe_ms"] = graph_ms(
+                    torch, lambda: et._dedupe(ku, kv, raw), reps)
+            k_bytes = (11 * lanes_n + 9 * visited + placed + failed
+                       + 9 * placed)
+            k_formula = "11 B + 9 visited + want + 9 placed"
+            c_bytes, c_formula = (
+                (9 * c_out + k_bytes, "9 C + kernel bytes") if kind ==
+                "rehash" else (18 * c_out + k_bytes, "18 C + kernel bytes"))
+        b_ms, b_by = bound_ms(c_bytes)
+        kb_ms, kb_by = bound_ms(k_bytes)
+        copy_ms = graph_ms(torch, copy, reps)
+        k_ms = graph_ms(torch, lambda: (copy(), launch()), reps) - copy_ms
+        copy_host_ms = cuda_ms(torch, copy, reps)
+        row = checked_row(dict(
+            case=tag, shape=f"C={c_out} B={lanes_n} max_probes={mp}",
+            **counts, slots_visited=visited, tolerance="exact", equal=equal,
+            max_abs_err=err, launches=launches,
+            ms=graph_ms(torch, call, reps), host_ms=cuda_ms(torch, call, reps),
+            plain_ms=cuda_ms(torch, plain, 2), library_ms=None,
+            bound_ms=b_ms, bound_by=b_by, bound_formula=c_formula,
+            bound_bytes=c_bytes,
+            kernel_equal=k_equal, kernel_max_abs_err=k_err, kernel_ms=k_ms,
+            kernel_host_ms=(cuda_ms(torch, lambda: (copy(), launch()), reps)
+                            - copy_host_ms),
+            kernel_plain_ms=(cuda_ms(torch, lambda: (copy(),
+                                                     launch(plain_fn)), 2)
+                             - cuda_ms(torch, copy, 2)),
+            kernel_bound_ms=kb_ms, kernel_bound_by=kb_by,
+            kernel_bound_formula=k_formula, kernel_bound_bytes=k_bytes))
+        row["share"] = row["bound_ms"] / row["ms"]
+        row["kernel_share"] = kb_ms / k_ms
+        check(k_ms >= kb_ms, f"edge table {tag}: the kernel's {k_ms} ms is "
+                             f"below its bound")
+        rows.append(row)
+        del bufs, out
+        return got
+
+    empty = et.empty(cap, dev)
+    table, _, _ = run("boot insert", "insert", empty, src, dst, max_probes,
+                      reps=3)
+    gone = torch.randperm(n, generator=g, device=dev)[:n // 4]
+    table, _ = et.remove(table, src[gone], dst[gone], max_probes)
+    u, v = lanes(b, torch.cat([src, src[gone]]), torch.cat([dst, dst[gone]]))
+    enable = torch.rand(b, generator=g, device=dev) < 0.9
+    run("insert", "insert", table, u, v, max_probes, enable)
+    u, v = lanes(b, src, dst)
+    run("remove", "remove", table, u, v, max_probes)
+    run("compact", "rehash", table, None, None, max_probes, new_cap=cap,
+        reps=3)
+    run(f"rehash to C={2 * cap}", "rehash", table, None, None, max_probes,
+        new_cap=2 * cap, reps=3)
+    # high load: 2^20 slots filled to ~95% (a long probe bound for the
+    # fill), then 8192 fresh keys at the main path's probe bound
+    k = int(0.95 * hi_cap)
+    fu, fv = (torch.randint(0, nv, (k,), generator=g, device=dev,
+                            dtype=torch.int32) for _ in range(2))
+    full, _, _ = et.insert(et.empty(hi_cap, dev), fu, fv, 4096)
+    u, v = (torch.randint(0, nv, (b,), generator=g, device=dev,
+                          dtype=torch.int32) for _ in range(2))
+    run(f"high load ({int(et.fill_stats(full)[0])} live of {hi_cap})",
+        "insert", full, u, v, max_probes)
+    check(rows[-1]["failed"] > 0, "the high-load insert failed no lane")
+    return rows
+
+
+def parent_dedupe(torch, u, v, enable):
+    """The parent's ``edge_table._dedupe``: the same lexsort, then each
+    run's first enabled lane found by a ``torch.cummax`` scan."""
+    order = torch.argsort(v, stable=True)
+    order = order[torch.argsort(u[order], stable=True)]
+    su, sv, se = u[order], v[order], enable[order]
+    start = torch.ones_like(se)
+    start[1:] = (su[1:] != su[:-1]) | (sv[1:] != sv[:-1])
+    before = torch.cumsum(se.long(), 0) - se.long()
+    at_start = torch.cummax(torch.where(start, before, 0), 0).values
+    dup = torch.empty_like(se)
+    dup[order] = se & (before > at_start)
+    return dup
+
+
+def plain_insert(torch, et, href, table, u, v, mp, enable=None):
+    """The parent's ``et.insert`` on the card: its dedupe, the clones, then
+    the plain hash, lookup and rounds (one host read per round)."""
+    if enable is None:
+        enable = torch.ones(u.shape[0], dtype=torch.bool, device=u.device)
+    enable = enable & ~parent_dedupe(torch, u, v, enable)
+    cols = [c.clone() for c in table]
+    placed, failed, _ = href.insert(*cols, u, v, enable, max_probes=mp)
+    return et.EdgeTable(*cols), placed, failed
+
+
+def plain_remove(torch, et, href, table, u, v, mp, enable=None):
+    """The parent's ``et.remove`` on the card."""
+    if enable is None:
+        enable = torch.ones(u.shape[0], dtype=torch.bool, device=u.device)
+    state = table.state.clone()
+    removed = href.remove(table.src, table.dst, state, u, v, enable,
+                          max_probes=mp)
+    return table._replace(state=state), removed
+
+
+def plain_rehash(torch, et, href, table, new_cap, mp):
+    """The parent's ``et.rehash`` on the card."""
+    return plain_insert(torch, et, href, et.empty(new_cap, table.src.device),
+                        table.src, table.dst, mp,
+                        table.state == et.LIVE)[0]
+
+
 def visible_pairs(s: int, window: int) -> int:
     """(query, key) pairs causal attention keeps for one head of length s:
     0 <= i - j < window, window 0 meaning no limit."""
@@ -684,11 +940,12 @@ def mind_ids(torch, dev, g, n_bags=512, bag_len=50):
     return ids
 
 
-def probe_visits(torch, table, base, u, v, max_probes) -> int:
-    """Slots the walk of every lane reads on these inputs (the data-
-    dependent byte count of the probe bound)."""
+def probe_visits(torch, table, base, u, v, max_probes, lanes=None) -> int:
+    """Slots the walk of every lane (of ``lanes`` where given) reads on
+    these inputs (the data-dependent byte count of the probe bound)."""
     cap = table.src.shape[0]
-    done = torch.zeros(u.shape[0], dtype=torch.bool, device=u.device)
+    done = (torch.zeros(u.shape[0], dtype=torch.bool, device=u.device)
+            if lanes is None else ~lanes)
     visits = torch.zeros((), dtype=torch.int64, device=u.device)
     for i in range(max_probes):
         pos = ((base + i) & (cap - 1)).long()
@@ -717,6 +974,7 @@ def serve_path(torch, dev, *, nv, cap, bucket, chunk, n_chunks,
     from repro_torch.core import dynamic
     from repro_torch.core import graph_state as gs
     from repro_torch.core.service import SCCService
+    from repro_torch.kernels.hash_probe import ops as hops
     from repro_torch.launch import stream
 
     cfg = smscc.config(n_vertices=nv, edge_capacity=cap,
@@ -745,6 +1003,8 @@ def serve_path(torch, dev, *, nv, cap, bucket, chunk, n_chunks,
                             query_frac=1.0, chunk=chunk, n_queries=n_same,
                             seed=SEED, budget_s=budget_s, record=record)
     rep["launches"] = kernels.launch_counts()
+    rep["hash_probe_launches"] = {e: getattr(hops, e).launches
+                                  for e in ("probe", "insert", "remove")}
     steps = sum(run[f"repair_{t}_steps"] for t in
                 ("dense", "compact", "full", "skipped"))
     rep.update(
@@ -934,6 +1194,20 @@ def main() -> int:
     t0 = time.perf_counter()
     kern = kernel_checks(torch, dev)
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    et_rows = edge_table_checks(
+        torch, dev, torch.Generator(device=dev).manual_seed(SEED + 2))
+    emit("edge_table", seconds=time.perf_counter() - t1, rows=et_rows)
+    # the main path's own form: the kernel of an update step's 8192-lane
+    # insert, alone (the whole et.insert call stays in its edge_table row)
+    r = et_rows[1]
+    kern["hash_probe"] = dict(
+        shape=f"{r['shape']} (insert entry, kernel alone)",
+        max_abs_err=r["kernel_max_abs_err"], ms=r["kernel_ms"],
+        host_ms=r["kernel_host_ms"], plain_ms=r["kernel_plain_ms"],
+        bound_ms=r["kernel_bound_ms"], bound_by=r["kernel_bound_by"],
+        library_ms=None)
+    torch.cuda.empty_cache()
     # before the model is loaded: the plain attention at the qwen3 shape
     # holds a [4, 40, 4096, 4096] f32 score tensor (10.7 GB)
     kern.update(lm_kernel_checks(torch, dev))
@@ -949,6 +1223,8 @@ def main() -> int:
              asked=main_rep["chunks_asked"], reason="time budget")
     for k in ("frontier_min", "hash_probe"):
         check(main_rep["launches"][k] > 0, f"{k} never launched")
+    check(main_rep["hash_probe_launches"]["insert"] > 0,
+          "hash_probe's insert entry never launched")
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -992,8 +1268,10 @@ def main() -> int:
     lm_cmp = lm_card_vs_cpu(torch, dev)
     emit("lm_card_vs_cpu", seconds=time.perf_counter() - t0, **lm_cmp)
 
+    # hash_probe: the insert entry's launches, the form its entry times;
+    # all three entries' launches stand beside them
     launches = {"frontier_min": main_rep["launches"]["frontier_min"],
-                "hash_probe": main_rep["launches"]["hash_probe"],
+                "hash_probe": main_rep["hash_probe_launches"]["insert"],
                 "bool_matmul": dense_rep["launches"]["bool_matmul"],
                 "flash_attention": lm_rep["launches"]["flash_attention"],
                 "embedding_bag": bag_rep["launches"]["embedding_bag"]}
@@ -1005,7 +1283,9 @@ def main() -> int:
              bound_ms=kern[name]["bound_ms"],
              bound_by=kern[name]["bound_by"],
              library_ms=kern[name]["library_ms"],
-             shape=kern[name]["shape"])
+             shape=kern[name]["shape"],
+             **({"launches_by_entry": main_rep["hash_probe_launches"]}
+                if name == "hash_probe" else {}))
         for name in KERNELS]}), flush=True)
     emit("total", seconds=time.perf_counter() - t_all)
     print(card, flush=True)

@@ -6,8 +6,11 @@ and a rehash pass.  Every operation is functional: it returns new column
 tensors and never writes into the table it was given, so a committed
 snapshot that a reader holds is never touched.
 
-The uint32 hash is computed in int64 masked to 32 bits; torch has no
-uint32 multiply or logical shift.
+On the card the hash, the walk and the claim rounds of ``insert`` and
+``remove`` run in one kernel launch each (``kernels/hash_probe``); the
+batch's dedupe stays here.  The hash's torch form
+(``kernels/hash_probe/ref.hash_slots``) computes the uint32 mix in int64
+masked to 32 bits; torch has no uint32 multiply or logical shift.
 """
 from __future__ import annotations
 
@@ -15,13 +18,12 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.sync import SYNCS
 from repro_torch.kernels.hash_probe import ops as hash_probe
+from repro_torch.kernels.hash_probe.ref import hash_slots as _hash
 
 EMPTY = 0
 LIVE = 1
 TOMB = 2
-_M32 = 0xFFFFFFFF
 
 
 class EdgeTable(NamedTuple):
@@ -39,26 +41,6 @@ def empty(capacity: int, device) -> EdgeTable:
         state=torch.zeros(capacity, dtype=torch.int8, device=device))
 
 
-def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2^32 for int64 x in [0, 2^32), without int64 overflow:
-    the product is split at 16 bits so no partial product exceeds 2^48."""
-    lo = (x & 0xFFFF) * c
-    hi = (((x >> 16) * c) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
-def _hash(u: torch.Tensor, v: torch.Tensor, capacity: int) -> torch.Tensor:
-    """The JAX package's uint32 mixing of (u, v) into [0, capacity)."""
-    u = u.long() & _M32
-    v = v.long() & _M32
-    h = mul32(u, 0x9E3779B1) ^ ((v + 0x85EBCA77 + ((u << 6) & _M32)
-                                 + (u >> 2)) & _M32)
-    h = h ^ (h >> 15)
-    h = mul32(h, 0x2C1B3C6D)
-    h = h ^ (h >> 12)
-    return (h & (capacity - 1)).int()
-
-
 def lookup(table: EdgeTable, u, v, max_probes: int, *, impl: str = "auto"
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched membership probe: ``(found: bool[B], slot: int32[B])``;
@@ -70,21 +52,19 @@ def lookup(table: EdgeTable, u, v, max_probes: int, *, impl: str = "auto"
 
 
 def _dedupe(u, v, enable):
-    """True for enabled lanes whose key an earlier enabled lane holds:
-    a stable lexsort by (u, v), then, in each run of equal keys, every
-    enabled lane after the run's first enabled one."""
-    order = torch.argsort(v, stable=True)
+    """True for enabled lanes whose key an earlier enabled lane holds.  A
+    stable sort by (u, v), enabled lanes first within each key, puts a
+    key's first enabled lane at the start of its run, so every enabled
+    lane past a run's start is a duplicate.  (No scan and no scatter: a
+    cummax or a scatter-min over run ids is slow on the card.)"""
+    order = torch.argsort((~enable).to(torch.uint8), stable=True)
+    order = order[torch.argsort(v[order], stable=True)]
     order = order[torch.argsort(u[order], stable=True)]
     su, sv, se = u[order], v[order], enable[order]
     start = torch.ones_like(se)
     start[1:] = (su[1:] != su[:-1]) | (sv[1:] != sv[:-1])
-    # enabled lanes strictly before each position, and the same count at
-    # the start of its run (non-decreasing, so cummax carries it forward)
-    before = torch.cumsum(se.long(), 0) - se.long()
-    at_start = torch.cummax(torch.where(start, before, 0), 0).values
-    dup_sorted = se & (before > at_start)
-    dup = torch.empty_like(dup_sorted)
-    dup[order] = dup_sorted
+    dup = torch.empty_like(se)
+    dup[order] = se & ~start
     return dup
 
 
@@ -95,69 +75,32 @@ def insert(table: EdgeTable, u, v, max_probes: int, enable=None, *,
     bool[B])`` with ``repro.core.edge_table.insert`` semantics: duplicates
     within the batch after the first enabled one, present keys and
     disabled lanes are not inserted; ``failed`` marks lanes that wanted a
-    slot but exhausted the probe bound."""
-    cap = table.src.shape[0]
+    slot but exhausted the probe bound.  The hash, the lookup and every
+    claim round run in ``hash_probe.insert`` (on the card: one launch, no
+    host read), writing into clones of the columns."""
     b = u.shape[0]
-    dev = u.device
     if enable is None:
-        enable = torch.ones(b, dtype=torch.bool, device=dev)
+        enable = torch.ones(b, dtype=torch.bool, device=u.device)
     enable = enable & ~_dedupe(u, v, enable)
-    found, _ = lookup(table, u, v, max_probes, impl=impl)
-    want = enable & ~found
-    base = _hash(u, v, cap)
-    lane = torch.arange(b, dtype=torch.int32, device=dev)
     src, dst, state = (table.src.clone(), table.dst.clone(),
                        table.state.clone())
-    claims = torch.empty(cap, dtype=torch.int32, device=dev)
-    placed = torch.zeros(b, dtype=torch.bool, device=dev)
-    probe = torch.zeros(b, dtype=torch.int32, device=dev)
-    for _ in range(max_probes):
-        pending = want & ~placed
-        # a round with no pending lane changes nothing; JAX runs all
-        # max_probes rounds, the port stops here
-        if not SYNCS.bool(pending.any()):
-            break
-        pos = ((base + probe) & (cap - 1)).long()
-        contend = pending & (state[pos] != LIVE)
-        # scatter-min claim over this round's slots: the lowest lane wins
-        claims[pos] = b
-        claims.scatter_reduce_(0, pos, torch.where(contend, lane, b),
-                               reduce="amin")
-        owner = claims[pos]
-        win = contend & (owner == lane)
-        # every lane at a slot writes the slot's winner (or the slot's
-        # old value), so duplicate indices write identical values
-        claimed = owner < b
-        w = owner.clamp(max=b - 1).long()
-        src[pos] = torch.where(claimed, u[w], src[pos])
-        dst[pos] = torch.where(claimed, v[w], dst[pos])
-        state[pos] = torch.where(claimed, LIVE, state[pos]).to(torch.int8)
-        placed = placed | win
-        probe = torch.where(pending & ~win, probe + 1, probe)
-    return EdgeTable(src, dst, state), placed, want & ~placed
+    placed, failed, _ = hash_probe.insert(src, dst, state, u, v, enable,
+                                          max_probes=max_probes, impl=impl)
+    return EdgeTable(src, dst, state), placed, failed
 
 
 def remove(table: EdgeTable, u, v, max_probes: int, enable=None, *,
            impl: str = "auto") -> Tuple[EdgeTable, torch.Tensor]:
     """Batched remove (logical delete -> TOMB).  Returns (table,
     removed[B]); of duplicate removals of one key only the first
-    succeeds."""
-    b = u.shape[0]
-    dev = u.device
+    succeeds.  The hash, the walk, the claim and the TOMB write run in
+    ``hash_probe.remove``, writing into a clone of ``state``."""
     if enable is None:
-        enable = torch.ones(b, dtype=torch.bool, device=dev)
-    found, slot = lookup(table, u, v, max_probes, impl=impl)
-    hit = found & enable
-    lane = torch.arange(b, dtype=torch.int32, device=dev)
-    pos = torch.where(hit, slot, 0).long()
-    claims = torch.empty(table.src.shape[0], dtype=torch.int32, device=dev)
-    claims[pos] = b
-    claims.scatter_reduce_(0, pos, torch.where(hit, lane, b), reduce="amin")
-    owner = claims[pos]
-    first = hit & (owner == lane)
+        enable = torch.ones(u.shape[0], dtype=torch.bool, device=u.device)
     state = table.state.clone()
-    state[pos] = torch.where(owner < b, TOMB, state[pos]).to(torch.int8)
-    return table._replace(state=state), first
+    removed = hash_probe.remove(table.src, table.dst, state, u, v, enable,
+                                max_probes=max_probes, impl=impl)
+    return table._replace(state=state), removed
 
 
 def remove_incident(table: EdgeTable, v_mask: torch.Tensor
@@ -172,12 +115,14 @@ def remove_incident(table: EdgeTable, v_mask: torch.Tensor
 def rehash(table: EdgeTable, new_capacity: int, max_probes: int, *,
            impl: str = "auto") -> EdgeTable:
     """Migrate every LIVE entry into a fresh table of ``new_capacity``
-    (tombstones dropped; ``rehash(t, cap(t))`` is :func:`compact`)."""
+    (tombstones dropped; ``rehash(t, cap(t))`` is :func:`compact`).  The
+    LIVE keys are unique, so the insert rounds run with no dedupe, straight
+    into the fresh columns."""
     if new_capacity & (new_capacity - 1):
         raise ValueError("new_capacity must be a power of two")
     fresh = empty(new_capacity, table.src.device)
-    fresh, _, _ = insert(fresh, table.src, table.dst, max_probes,
-                         enable=table.state == LIVE, impl=impl)
+    hash_probe.insert(*fresh, table.src, table.dst, table.state == LIVE,
+                      max_probes=max_probes, impl=impl)
     return fresh
 
 

@@ -21,9 +21,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.edge_table import mul32
 from repro_torch.core.sync import SYNCS
 from repro_torch.kernels.frontier_expand import ops as frontier
+from repro_torch.kernels.u32 import mul32
 
 SENT_WORD = frontier.SENT_WORD  # SENTINEL as a 32-bit word
 INT32_MAX = 2 ** 31 - 1

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain version.
 
 Each wrapper counts its CUDA launches in a ``launches`` attribute (never a
-plain-version call); :func:`launch_counts` reads them all.
+plain-version call); :func:`launch_counts` reads them all, one count per
+kernel source (hash_probe's three entries together).
 """
 
 
@@ -11,16 +12,20 @@ def _wrappers() -> dict:
     from repro_torch.kernels.reach_blockmm import ops as bops
     from repro_torch.kernels.flash_attention import ops as aops
     from repro_torch.kernels.embedding_bag import ops as eops
-    return {"frontier_min": fops.frontier_min, "hash_probe": hops.probe,
-            "bool_matmul": bops.bool_matmul, "flash_attention": aops.mha,
-            "embedding_bag": eops.embedding_bag}
+    return {"frontier_min": (fops.frontier_min,),
+            "hash_probe": (hops.probe, hops.insert, hops.remove),
+            "bool_matmul": (bops.bool_matmul,),
+            "flash_attention": (aops.mha,),
+            "embedding_bag": (eops.embedding_bag,)}
 
 
 def launch_counts() -> dict:
     """Kernel name -> CUDA launches so far."""
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: sum(fn.launches for fn in fns)
+            for name, fns in _wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in _wrappers().values():
-        fn.launches = 0
+    for fns in _wrappers().values():
+        for fn in fns:
+            fn.launches = 0

@@ -1,9 +1,14 @@
-"""Hash-probe wrapper: the plain version for CPU tensors, the CUDA kernel
+"""Edge-table wrappers: the plain versions for CPU tensors, the CUDA kernels
 (``csrc/hash_probe.cu``) for CUDA tensors.
 
 Replaces ``repro.kernels.hash_probe.ops.probe`` and its TPU kernel
-``probe_sweep``.  The kernel walks each lane's chain, so there is no table
-size ceiling (the TPU wrapper stopped at 2^16 slots).
+``probe_sweep``, and runs the claim rounds of ``repro.core.edge_table``'s
+insert and remove, which the JAX package leaves to XLA.  The walk reads
+each lane's chain only, so there is no table size ceiling (the TPU wrapper
+stopped at 2^16 slots).  ``insert`` and ``remove`` are one cooperative
+launch each and read nothing back to the host.  Every launch is counted on
+its wrapper's ``launches`` (``kernels.launch_counts()`` reports the three
+together as ``hash_probe``).
 """
 from __future__ import annotations
 
@@ -15,14 +20,44 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.hash_probe import ref
 
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = _build.load("hash_probe").hash_probe_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_longlong,
-                                           ctypes.c_int, ctypes.c_void_p]
+def _entry(name: str):
+    fn = getattr(_build.load("hash_probe"), name)
+    fn.argtypes = {
+        "hash_probe_launch": [_P] * 8 + [_I, _L, _I, _P],
+        "hash_insert_launch": [_P] * 10 + [_I, _L, _I, _P],
+        "hash_remove_launch": [_P] * 9 + [_I, _L, _I, _P],
+    }[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_args(src, dst, state, base, u, v, max_probes, enable=None):
+    dev = u.device
+    cap = src.shape[0]
+    b = u.shape[0]
+    cols = (("src", src), ("dst", dst), ("u", u), ("v", v))
+    for name, t in cols + ((("base", base),) if base is not None else ()):
+        _build.require(t, name, torch.int32, 1, dev)
+    _build.require(state, "state", torch.int8, 1, dev)
+    if enable is not None:
+        _build.require(enable, "enable", torch.bool, 1, dev)
+        if enable.shape[0] != b:
+            raise ValueError("enable must have one flag per lane")
+    if cap & (cap - 1) or dst.shape[0] != cap or state.shape[0] != cap:
+        raise ValueError("table columns must share a power-of-two length")
+    if cap > 2 ** 30:
+        raise ValueError("table capacity above 2^30")
+    if v.shape[0] != b or (base is not None and base.shape[0] != b):
+        raise ValueError("base, u and v must share one lane count")
+    if max_probes < 0:
+        raise ValueError("max_probes must be >= 0")
+    return dev, cap, b
 
 
 def probe(src, dst, state, base, u, v, *, max_probes: int,
@@ -37,26 +72,75 @@ def probe(src, dst, state, base, u, v, *, max_probes: int,
     if u.device.type == "cpu":
         return ref.probe(src, dst, state, base, u, v, max_probes=max_probes)
     _build.require_kernel_impl(impl, "hash_probe")
-    dev = u.device
-    cap = src.shape[0]
-    b = u.shape[0]
-    for name, t in (("src", src), ("dst", dst), ("base", base), ("u", u),
-                    ("v", v)):
-        _build.require(t, name, torch.int32, 1, dev)
-    _build.require(state, "state", torch.int8, 1, dev)
-    if cap & (cap - 1) or dst.shape[0] != cap or state.shape[0] != cap:
-        raise ValueError("table columns must share a power-of-two length")
-    if base.shape[0] != b or v.shape[0] != b:
-        raise ValueError("base, u and v must share one lane count")
+    dev, cap, b = _check_args(src, dst, state, base, u, v, max_probes)
     found = torch.empty(b, dtype=torch.bool, device=dev)
     slot = torch.empty(b, dtype=torch.int32, device=dev)
-    _build.check(_entry()(src.data_ptr(), dst.data_ptr(), state.data_ptr(),
-                          base.data_ptr(), u.data_ptr(), v.data_ptr(),
-                          found.data_ptr(), slot.data_ptr(), b, cap,
-                          max_probes, _build.stream_ptr(slot)),
-                 "hash_probe")
+    _build.check(_entry("hash_probe_launch")(
+        src.data_ptr(), dst.data_ptr(), state.data_ptr(), base.data_ptr(),
+        u.data_ptr(), v.data_ptr(), found.data_ptr(), slot.data_ptr(), b,
+        cap, max_probes, _build.stream_ptr(slot)), "hash_probe")
     probe.launches += 1
     return found, slot
 
 
+def insert(src, dst, state, u, v, enable, *, max_probes: int,
+           impl: str = "auto"):
+    """The insert's hash, lookup and claim rounds, writing the winners into
+    ``src``, ``dst`` and ``state`` IN PLACE (the caller hands in clones).
+
+    ``enable``: bool[B], already free of intra-batch duplicates.  Returns
+    ``(placed: bool[B], failed: bool[B], rounds)`` with
+    ``repro.core.edge_table.insert`` semantics; ``rounds`` is a 0-d int32
+    tensor on the lanes' device (the rounds run until no lane was
+    pending).
+    """
+    if u.device.type == "cpu":
+        return ref.insert(src, dst, state, u, v, enable,
+                          max_probes=max_probes)
+    _build.require_kernel_impl(impl, "hash_probe")
+    dev, cap, b = _check_args(src, dst, state, None, u, v, max_probes,
+                              enable)
+    placed = torch.empty(b, dtype=torch.bool, device=dev)
+    failed = torch.empty(b, dtype=torch.bool, device=dev)
+    counts = torch.zeros(max_probes + 2, dtype=torch.int32, device=dev)
+    if b == 0:
+        return placed, failed, counts[-1]
+    claims = torch.empty(2 * cap, dtype=torch.int32, device=dev)
+    _build.check(_entry("hash_insert_launch")(
+        src.data_ptr(), dst.data_ptr(), state.data_ptr(), u.data_ptr(),
+        v.data_ptr(), enable.data_ptr(), placed.data_ptr(),
+        failed.data_ptr(), claims.data_ptr(), counts.data_ptr(), b, cap,
+        max_probes, _build.stream_ptr(placed)), "hash_insert")
+    insert.launches += 1
+    return placed, failed, counts[-1]
+
+
+def remove(src, dst, state, u, v, enable, *, max_probes: int,
+           impl: str = "auto"):
+    """Remove's hash, lookup, lowest-lane claim of each hit slot and TOMB
+    write, writing into ``state`` IN PLACE (the caller hands in a clone).
+    Returns ``removed: bool[B]``; of duplicate removals of one key only the
+    lowest enabled lane succeeds."""
+    if u.device.type == "cpu":
+        return ref.remove(src, dst, state, u, v, enable,
+                          max_probes=max_probes)
+    _build.require_kernel_impl(impl, "hash_probe")
+    dev, cap, b = _check_args(src, dst, state, None, u, v, max_probes,
+                              enable)
+    removed = torch.empty(b, dtype=torch.bool, device=dev)
+    if b == 0:
+        return removed
+    slots = torch.empty(b, dtype=torch.int32, device=dev)
+    claims = torch.empty(cap, dtype=torch.int32, device=dev)
+    _build.check(_entry("hash_remove_launch")(
+        src.data_ptr(), dst.data_ptr(), state.data_ptr(), u.data_ptr(),
+        v.data_ptr(), enable.data_ptr(), removed.data_ptr(),
+        slots.data_ptr(), claims.data_ptr(), b, cap, max_probes,
+        _build.stream_ptr(removed)), "hash_remove")
+    remove.launches += 1
+    return removed
+
+
 probe.launches = 0
+insert.launches = 0
+remove.launches = 0

@@ -213,6 +213,78 @@ def test_rehash_and_compact(seed, new_cap):
         assert int(a) == int(b)
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+def test_insert_at_high_load_with_tomb_chains_wrap_and_failures(seed):
+    """C=1024 filled to 0.85 and a third of it tombstoned, then a batch of
+    fresh keys, re-adds of removed keys and intra-batch duplicates at
+    max_probes 8: TOMB chains, windows that wrap past C - 1 and lanes that
+    exhaust the bound, all bit-exact to JAX."""
+    cap, mp = 1024, 8
+    rng = np.random.default_rng(seed)
+    keys = rng.choice(2 ** 20, int(0.85 * cap), replace=False)
+    ku, kv = (keys >> 10).astype(np.int32), (keys & 1023).astype(np.int32)
+    jt, _, _ = jet.insert(jet.empty(cap), jnp.asarray(ku), jnp.asarray(kv),
+                          cap)
+    tt, _, _ = tet.insert(tet.empty(cap, "cpu"), _t(ku), _t(kv), cap)
+    gone = rng.choice(ku.shape[0], ku.shape[0] // 3, replace=False)
+    jt, _ = jet.remove(jt, jnp.asarray(ku[gone]), jnp.asarray(kv[gone]), cap)
+    tt, _ = tet.remove(tt, _t(ku[gone]), _t(kv[gone]), cap)
+    assert_same_table(tt, jt, "build")
+    b = 400
+    u = rng.integers(0, 1024, b).astype(np.int32)
+    v = rng.integers(0, 1024, b).astype(np.int32)
+    u[:100], v[:100] = ku[gone[:100]], kv[gone[:100]]  # re-adds
+    u[300:340], v[300:340] = u[:40], v[:40]  # intra-batch duplicates
+    en = rng.random(b) < 0.9
+    base = np.asarray(jet._hash(jnp.asarray(u), jnp.asarray(v), cap))
+    assert (base > cap - mp).any(), "no probe window wraps"
+    jt2, jins, jfail = jet.insert(jt, jnp.asarray(u), jnp.asarray(v), mp,
+                                  enable=jnp.asarray(en))
+    tt2, tins, tfail = tet.insert(tt, _t(u), _t(v), mp, enable=_t(en))
+    assert np.asarray(jfail).any() and (np.asarray(jt.state) == 2).any()
+    assert_same_table(tt2, jt2, "insert")
+    np.testing.assert_array_equal(_np(tins), np.asarray(jins))
+    np.testing.assert_array_equal(_np(tfail), np.asarray(jfail))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_rehash_of_many_lanes_into_a_larger_table(seed):
+    """A 4096-slot table at ~0.7 load with tombstones rehashed to 16384
+    slots (4096 lanes) and compacted in place, bit-exact to JAX."""
+    rng = np.random.default_rng(seed)
+    keys = rng.choice(2 ** 24, 2900, replace=False)
+    ku, kv = (keys >> 12).astype(np.int32), (keys & 4095).astype(np.int32)
+    jt, _, _ = jet.insert(jet.empty(4096), jnp.asarray(ku), jnp.asarray(kv),
+                          64)
+    tt, _, _ = tet.insert(tet.empty(4096, "cpu"), _t(ku), _t(kv), 64)
+    jt, _ = jet.remove(jt, jnp.asarray(ku[::4]), jnp.asarray(kv[::4]), 64)
+    tt, _ = tet.remove(tt, _t(ku[::4]), _t(kv[::4]), 64)
+    assert_same_table(tt, jt, "build")
+    assert_same_table(tet.rehash(tt, 16384, 64), jet.rehash(jt, 16384, 64),
+                      "rehash")
+    assert_same_table(tet.compact(tt, 64), jet.compact(jt, 64), "compact")
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_dedupe_matches_sequential_order(seed):
+    """An enabled lane is a duplicate iff an earlier enabled lane holds its
+    key, as a sequential application reads the batch (JAX's dedupe scan):
+    small key ranges, negative keys, and half the lanes in one run of the
+    key (0, 0), as a rehash's empty slots make."""
+    rng = np.random.default_rng(seed)
+    b = 3000
+    u = rng.integers(-3, 30, b).astype(np.int32)
+    v = rng.integers(-3, 30, b).astype(np.int32)
+    u[::2], v[::2] = 0, 0
+    en = rng.random(b) < 0.6
+    seen, want = set(), np.zeros(b, bool)
+    for i in np.flatnonzero(en):
+        want[i] = (u[i], v[i]) in seen
+        seen.add((u[i], v[i]))
+    np.testing.assert_array_equal(
+        _np(tet._dedupe(_t(u), _t(v), _t(en))), want)
+
+
 def test_hash_matches_for_negative_and_large_keys():
     u = np.array([-1, 0, 1, 2 ** 31 - 1, -2 ** 31, 12345], np.int32)
     v = np.array([-1, 7, -5, 3, 2 ** 31 - 1, 0], np.int32)

@@ -19,9 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import edge_table as tet
 from repro_torch.core import graph_state as tgs
 from repro_torch.core import reach as treach
 from repro_torch.core.service import SCCService
+from repro_torch.core.sync import SYNCS
 from repro_torch.kernels.frontier_expand import ops as fops
 from repro_torch.kernels.frontier_expand import ref as fref
 from repro_torch.kernels.hash_probe import ops as hops
@@ -136,6 +138,136 @@ def test_probe_kernel(cuda):
         got = hops.probe(*args, max_probes=max_probes)
         want = href.probe(*args, max_probes=max_probes)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_probe_kernel_small_and_unaligned_tables(cuda):
+    """C below 16, and columns 4 or 1 bytes past 16-byte alignment: the
+    slot-at-a-time walk."""
+    rng = np.random.default_rng(1)
+    for cap, shift in ((8, 0), (4, 0), (1024, 1)):
+        st = rng.choice([0, 1, 2], cap + 1, p=[0.2, 0.5, 0.3]).astype(np.int8)
+        cols = [torch.from_numpy(x).to(cuda)[shift:cap + shift] for x in (
+            rng.integers(-1, 8, cap + 1).astype(np.int32),
+            rng.integers(-1, 8, cap + 1).astype(np.int32), st)]
+        args = cols + [torch.from_numpy(x).to(cuda) for x in (
+            rng.integers(0, cap, 300).astype(np.int32),
+            rng.integers(-1, 8, 300).astype(np.int32),
+            rng.integers(-1, 8, 300).astype(np.int32))]
+        for max_probes in (1, 5, 2 * cap):
+            got = hops.probe(*args, max_probes=max_probes)
+            want = href.probe(*args, max_probes=max_probes)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _write_case(cuda, seed, cap, fill, b, *, dup=0.1, enable=0.8,
+                negative=False):
+    """A table built by the port's insert and remove on the card (LIVE,
+    TOMB and EMPTY slots), and b lanes: present, removed and fresh keys,
+    ~dup of them repeating an earlier lane, an enable mask; keys from
+    [-kr, kr) with ``negative``, else [0, kr)."""
+    rng = np.random.default_rng(seed)
+    kr = max(4, int(np.sqrt(4 * cap)))
+    lo = -kr if negative else 0
+    n = int(fill * cap)
+    ku, kv = (rng.integers(lo, kr, n).astype(np.int32) for _ in range(2))
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+
+    table, _, _ = tet.insert(tet.empty(cap, cuda), t(ku), t(kv), cap)
+    table, _ = tet.remove(table, t(ku[: n // 3]), t(kv[: n // 3]), cap)
+    pick = rng.integers(0, n, b)
+    old = rng.random(b) < 0.6
+    u = np.where(old, ku[pick], rng.integers(lo, kr, b)).astype(np.int32)
+    v = np.where(old, kv[pick], rng.integers(lo, kr, b)).astype(np.int32)
+    rep = rng.random(b) < dup
+    earlier = (rng.random(b) * np.arange(b)).astype(np.int64)
+    u, v = np.where(rep, u[earlier], u), np.where(rep, v[earlier], v)
+    return table, t(u), t(v), t(rng.random(b) < enable)
+
+
+def _insert_both(table, u, v, en, max_probes):
+    """The insert kernel and its plain version on clones of one table:
+    (columns, placed, failed, rounds) of each."""
+    en = en & ~tet._dedupe(u, v, en)
+    out = []
+    for fn in (hops.insert, href.insert):
+        cols = [c.clone() for c in table]
+        placed, failed, rounds = fn(*cols, u, v, en, max_probes=max_probes)
+        out.append((cols, placed, failed, int(rounds)))
+    return out
+
+
+def _assert_same_insert(got, want):
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert got[3] == want[3]
+
+
+# (cap, fill, b, max_probes, options): duplicates and an enable mask,
+# overflow at high load, max_probes 1 and above C, C below 16 (the
+# slot-at-a-time walk), no lanes, every lane disabled, negative keys
+@pytest.mark.parametrize("cap,fill,b,max_probes,opts", [
+    (4096, 0.4, 2000, 64, {}), (1024, 0.9, 600, 8, {}),
+    (1024, 0.5, 300, 1, {}), (256, 0.7, 300, 600, {}),
+    (8, 0.5, 12, 20, {}), (1024, 0.5, 0, 8, {}),
+    (1024, 0.5, 500, 16, {"enable": 0.0}),
+    (1024, 0.6, 500, 16, {"negative": True})])
+def test_insert_kernel(cuda, cap, fill, b, max_probes, opts):
+    table, u, v, en = _write_case(cuda, cap + b, cap, fill, b, **opts)
+    got, want = _insert_both(table, u, v, en, max_probes)
+    _assert_same_insert(got, want)
+    if fill >= 0.9:
+        assert bool(got[2].any()), "the high-load case failed no lane"
+
+
+@pytest.mark.parametrize("cap,fill,b,max_probes,opts", [
+    (4096, 0.4, 2000, 64, {"dup": 0.3}), (1024, 0.9, 600, 8, {}),
+    (1024, 0.5, 300, 1, {}), (256, 0.7, 300, 600, {}),
+    (8, 0.5, 12, 20, {}), (1024, 0.5, 0, 8, {}),
+    (1024, 0.5, 500, 16, {"enable": 0.0}),
+    (1024, 0.6, 500, 16, {"negative": True})])
+def test_remove_kernel(cuda, cap, fill, b, max_probes, opts):
+    table, u, v, en = _write_case(cuda, cap + b + 1, cap, fill, b, **opts)
+    states, flags = [], []
+    for fn in (hops.remove, href.remove):
+        st = table.state.clone()
+        flags.append(fn(table.src, table.dst, st, u, v, en,
+                        max_probes=max_probes))
+        states.append(st)
+    assert torch.equal(states[0], states[1])
+    assert torch.equal(flags[0], flags[1])
+
+
+def test_insert_kernel_lanes_beyond_one_grid(cuda):
+    """2^20 lanes, more than the co-resident grid has threads, so each
+    thread strides over several lanes in every phase."""
+    table, u, v, en = _write_case(cuda, 7, 2 ** 21, 0.3, 2 ** 20, dup=0.05)
+    got, want = _insert_both(table, u, v, en, 64)
+    _assert_same_insert(got, want)
+
+
+def test_edge_table_writes_make_no_host_sync(cuda):
+    """et.insert, et.remove, et.rehash and et.compact on a CUDA table read
+    nothing back to the host, and give the CPU's tables and flags."""
+    table, u, v, en = _write_case(cuda, 3, 2 ** 14, 0.5, 3000)
+    ops = (lambda t: tet.insert(t, u.to(t.src.device), v.to(t.src.device),
+                                32, en.to(t.src.device)),
+           lambda t: tet.remove(t, u.to(t.src.device), v.to(t.src.device),
+                                32, en.to(t.src.device)),
+           lambda t: (tet.rehash(t, 2 ** 15, 32),),
+           lambda t: (tet.compact(t, 32),))
+    cpu_table = tet.EdgeTable(*(c.cpu() for c in table))
+    for op in ops:
+        before = SYNCS.count
+        got = op(table)
+        assert SYNCS.count == before
+        want = op(cpu_table)
+        for a, b in zip(got[0], want[0]):
+            assert torch.equal(a.cpu(), b)
+        for a, b in zip(got[1:], want[1:]):
+            assert torch.equal(a.cpu(), b)
 
 
 def test_bool_matmul_kernel(cuda):

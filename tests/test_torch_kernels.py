@@ -1,5 +1,6 @@
 """The port's kernel wrappers, on CPU tensors (their plain versions), held
-to the JAX package's kernel wrappers.
+to the JAX package's kernel wrappers (the edge table's insert and remove
+rounds, which the JAX package leaves to XLA, to ``repro.core.edge_table``).
 
 Every input is made from a seeded numpy generator and handed to both
 packages as numpy.  Tolerance is exact equality throughout: every value is
@@ -9,15 +10,18 @@ shapes, under ``impl="pallas_interpret"`` (the Pallas kernel interpreted
 on the CPU).  The CUDA kernels themselves run only on the card
 (tests/test_torch_gpu.py and chip_smoke.py).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import edge_table as jet
 from repro.kernels.frontier_expand import ops as jfops
 from repro.kernels.hash_probe import ops as jhops
 from repro.kernels.reach_blockmm import ops as jbops
 from repro.core import reach as jreach
+from repro_torch.core import edge_table as tet
 from repro_torch.core import reach as treach
 from repro_torch.kernels.frontier_expand import ops as tfops
 from repro_torch.kernels.hash_probe import ops as thops
@@ -266,6 +270,63 @@ def test_probe_matches_pallas_interpret(seed, max_probes):
     got = _port_probe(*args, max_probes)
     np.testing.assert_array_equal(got[0], np.asarray(want[0]))
     np.testing.assert_array_equal(got[1], np.asarray(want[1]))
+
+
+# (cap, b, max_probes, fill, case): the insert's and remove's plain
+# versions (the rounds the CUDA kernels reproduce) on random tables with
+# LIVE / TOMB / EMPTY slots, against repro.core.edge_table
+_TABLE_CASES = [(256, 64, 16, 0.5, "mixed"), (256, 80, 1, 0.6, "mixed"),
+                (64, 40, 70, 0.8, "mixed"), (16, 20, 5, 0.9, "mixed"),
+                (8, 12, 40, 0.5, "mixed"), (128, 0, 8, 0.5, "empty_batch"),
+                (128, 50, 8, 0.5, "all_disabled"),
+                (128, 60, 8, 0.5, "negative_keys")]
+_jinsert = jax.jit(jet.insert, static_argnames="max_probes")
+_jremove = jax.jit(jet.remove, static_argnames="max_probes")
+
+
+def _table_case(seed, cap, b, fill, case):
+    src, dst, st, _, u, v = _probe_case(seed, cap, b, fill=fill)
+    rng = np.random.default_rng(seed + 100)
+    if case == "negative_keys":
+        u, v, src, dst = (-np.abs(x) - 1 for x in (u, v, src, dst))
+    en = (rng.random(b) < 0.8) & (case != "all_disabled")
+    return src, dst, st, u.astype(np.int32), v.astype(np.int32), en
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("cap,b,max_probes,fill,case", _TABLE_CASES)
+def test_insert_rounds_match_jax(seed, cap, b, max_probes, fill, case):
+    src, dst, st, u, v, en = _table_case(seed, cap, b, fill, case)
+    if b:
+        jt, jins, jfail = _jinsert(
+            jet.EdgeTable(*map(jnp.asarray, (src, dst, st))), jnp.asarray(u),
+            jnp.asarray(v), max_probes=max_probes, enable=jnp.asarray(en))
+    else:  # JAX's dedupe scan refuses zero lanes; zero lanes change nothing
+        jt, jins, jfail = (src, dst, st), en, en
+    cols = [_t(x).clone() for x in (src, dst, st)]
+    ten = _t(en) & ~tet._dedupe(_t(u), _t(v), _t(en))
+    placed, failed, rounds = thops.insert(*cols, _t(u), _t(v), ten,
+                                          max_probes=max_probes)
+    for got, want in zip(cols, jt):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(placed.numpy(), np.asarray(jins))
+    np.testing.assert_array_equal(failed.numpy(), np.asarray(jfail))
+    assert rounds.dtype == torch.int32 and 0 <= int(rounds) <= max_probes
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("cap,b,max_probes,fill,case", _TABLE_CASES)
+def test_remove_matches_jax(seed, cap, b, max_probes, fill, case):
+    src, dst, st, u, v, en = _table_case(seed, cap, b, fill, case)
+    u[b // 2:], v[b // 2:] = u[: b - b // 2], v[: b - b // 2]  # duplicates
+    jt, jrem = _jremove(jet.EdgeTable(*map(jnp.asarray, (src, dst, st))),
+                        jnp.asarray(u), jnp.asarray(v),
+                        max_probes=max_probes, enable=jnp.asarray(en))
+    state = _t(st).clone()
+    removed = thops.remove(_t(src), _t(dst), state, _t(u), _t(v), _t(en),
+                           max_probes=max_probes)
+    np.testing.assert_array_equal(state.numpy(), np.asarray(jt.state))
+    np.testing.assert_array_equal(removed.numpy(), np.asarray(jrem))
 
 
 # --------------------------------------------------------- bool_matmul ---
