@@ -61,7 +61,18 @@ Phases, each printing one line or more:
 8. LM card vs CPU: the qwen3 and danube smoke configs in f32 (TF32 off),
    the same weights on both devices through ``carry``, prefill then decode
    teacher-forced with the CPU's greedy tokens: logits within 2e-4;
-9. the kernels line (JSON), the card line, and the device line last.
+9. durable path (run after phase 5): update_1m's booted graph takes the 8
+   chunks through a plain SCCService, then through a DurableService
+   writer (fsync per record, a background snapshot every 4 generations)
+   while 2 WAL-tailing replicas serve 2 read-your-writes sessions; the
+   replicas must reach the writer's state leaf for leaf, and after a
+   crash (no close) recovery and a scratch replay of the whole WAL must
+   equal the writer's last commit; a store written on the card at 2^14
+   vertices must open bit-identically on the CPU; run_concurrent_stream
+   with 2 readers must end on the plain run's state; and
+   ``serve_smscc(replicas=2)`` runs at the reference's defaults.  The
+   stores live in a temporary directory, removed afterwards;
+10. the kernels line (JSON), the card line, and the device line last.
 
 Any failed check exits non-zero.  Without a CUDA card it exits 1 before
 printing any result.
@@ -958,6 +969,25 @@ def probe_visits(torch, table, base, u, v, max_probes, lanes=None) -> int:
 
 # -------------------------------------------------------- phases 3 - 5 ---
 
+def boot_state(torch, dev, cfg, preload_deg):
+    """``preload_deg`` random out-edges per vertex (seeded) and one static
+    recompute, or every vertex a live singleton when ``preload_deg`` is 0.
+    Returns (state, preloaded edge count)."""
+    import numpy as np
+
+    from repro_torch.core import dynamic
+    from repro_torch.core import graph_state as gs
+
+    nv = cfg.n_vertices
+    if not preload_deg:
+        return gs.all_singletons(cfg, dev), 0
+    rng = np.random.default_rng(SEED)
+    src = np.repeat(np.arange(nv, dtype=np.int32), preload_deg)
+    dst = rng.integers(0, nv, src.shape[0]).astype(np.int32)
+    state = gs.from_arrays(cfg, src, dst, device=dev)
+    return dynamic.recompute(state, cfg), int(src.shape[0])
+
+
 def serve_path(torch, dev, *, nv, cap, bucket, chunk, n_chunks,
                preload_deg, dense_capacity=0, budget_s=None,
                n_same=1024, record=None):
@@ -967,30 +997,21 @@ def serve_path(torch, dev, *, nv, cap, bucket, chunk, n_chunks,
     (``launch.stream.run_stream``).  Returns a report dict and the
     service; ``record`` collects every Result's (value, gen) for the
     card-vs-CPU comparison."""
-    import numpy as np
-
     from repro_torch import kernels
     from repro_torch.configs import smscc
     from repro_torch.core import dynamic
-    from repro_torch.core import graph_state as gs
     from repro_torch.core.service import SCCService
     from repro_torch.kernels.hash_probe import ops as hops
     from repro_torch.launch import stream
 
     cfg = smscc.config(n_vertices=nv, edge_capacity=cap,
                        dense_capacity=dense_capacity)
-    rng = np.random.default_rng(SEED)
     rep = {"n_vertices": nv, "edge_capacity": cap, "bucket": bucket,
            "dense_capacity": dense_capacity}
     t0 = time.perf_counter()
-    if preload_deg:
-        src = np.repeat(np.arange(nv, dtype=np.int32), preload_deg)
-        dst = rng.integers(0, nv, src.shape[0]).astype(np.int32)
-        state = gs.from_arrays(cfg, src, dst, device=dev)
-        state = dynamic.recompute(state, cfg)
-        rep["preload_edges"] = int(src.shape[0])
-    else:
-        state = gs.all_singletons(cfg, dev)
+    state, n_pre = boot_state(torch, dev, cfg, preload_deg)
+    if n_pre:
+        rep["preload_edges"] = n_pre
     sync(torch, dev)
     rep["boot_s"] = time.perf_counter() - t0
 
@@ -1147,6 +1168,320 @@ def lm_card_vs_cpu(torch, dev) -> dict:
     return {"tolerance": tol, "prompt": prompt, "steps": steps, **out}
 
 
+# ------------------------------------------------------------- phase 9 ---
+
+def pctl(xs, q):
+    import numpy as np
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+class GenWatch:
+    """Host time at which a service's committed generation first reached
+    each value: a thread waits on the service's commit condition."""
+
+    def __init__(self, svc):
+        import threading
+        self.svc = svc
+        self.seen = {svc.gen: time.perf_counter()}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        g = self.svc.gen
+        while not self._stop.is_set():
+            now = self.svc.wait_for_gen(g + 1, timeout=0.05)
+            if now > g:
+                t = time.perf_counter()
+                for x in range(g + 1, now + 1):
+                    self.seen[x] = t
+                g = now
+
+    def close(self):
+        self._stop.set()
+        self._thread.join()
+
+
+def durable_path(torch, dev, *, nv=2 ** 20, cap=2 ** 23, bucket=8192,
+                 chunk=4 * 8192, n_chunks=8, preload_deg=2, n_same=1024,
+                 replicas=2, readers=2, small=None) -> dict:
+    """The durable, replicated serving path at update_1m's shape.
+
+    The booted state (shared: no engine operation writes into a state)
+    first takes the ``n_chunks`` chunks through a plain SCCService, for
+    its ops/s.  Then a DurableService writer (fsync every record, a
+    background snapshot every 4 generations) takes the same chunks while
+    ``replicas`` WAL-tailing replicas serve ``readers`` read-your-writes
+    sessions (a touch write through the writer, then ``n_same`` SameSCC at
+    AT_LEAST(token)).  Each replica must reach the writer's generation
+    with its state equal leaf for leaf; then the writer "crashes" (no
+    close) and ``DurableService.open`` and ``scratch_replay`` (boot
+    snapshot + the full WAL) must both give the writer's last committed
+    state.  The launch counts are set to 0 before the writer starts and
+    read after the recovery.  Then, each counted on its own: a store
+    written on the card at ``small``'s shape opens bit-identically on the
+    CPU (snapshot + tail, and a scratch replay from the boot snapshot);
+    ``run_concurrent_stream`` with 2 readers takes the chunks and must end
+    on the plain run's state; and ``serve_smscc(..., replicas=2)`` runs
+    at the reference's own defaults.  Every store lives in a temporary
+    directory, removed afterwards."""
+    import os
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.api import (AddEdge, Consistency, GraphClient,
+                                 RemoveEdge, SameSCC)
+    from repro_torch.ckpt import oplog
+    from repro_torch.ckpt.durable import (DurableService, scratch_replay,
+                                          snap_dir, wal_dir)
+    from repro_torch.configs import smscc
+    from repro_torch.core.replicas import ReplicaSet
+    from repro_torch.core.service import SCCService
+    from repro_torch.launch import serve, stream
+    from repro_torch.launch.replica import states_equal
+
+    small = small or dict(nv=2 ** 14, cap=2 ** 16, bucket=1024, chunk=4096,
+                          n_chunks=3)
+    cuda = dev.type == "cuda"
+    cfg = smscc.config(n_vertices=nv, edge_capacity=cap)
+    knobs = dict(buckets=(8, bucket), scan_lengths=smscc.SCAN_LENGTHS,
+                 proactive_grow=True)
+    rep = {"n_vertices": nv, "edge_capacity": cap, "bucket": bucket,
+           "chunk": chunk, "chunks": n_chunks, "replicas": replicas,
+           "readers": readers}
+    t0 = time.perf_counter()
+    boot, rep["preload_edges"] = boot_state(torch, dev, cfg, preload_deg)
+    sync(torch, dev)
+    rep["boot_s"] = time.perf_counter() - t0
+
+    def feed(svc, cfg=cfg, chunk=chunk, n_chunks=n_chunks):
+        """The typed chunks through one GraphClient; seconds to a
+        synchronise."""
+        client = GraphClient(svc)
+        t0 = time.perf_counter()
+        for step in range(n_chunks):
+            client.submit_many(stream.typed_op_stream(
+                cfg.n_vertices, chunk, step=step, add_frac=0.7, seed=SEED))
+        sync(torch, dev)
+        seconds = time.perf_counter() - t0
+        client.close()
+        return seconds
+
+    plain = SCCService(cfg, state=boot, **knobs)
+    rep["plain_s"] = feed(plain)
+    rep["plain_ops_per_s"] = n_chunks * chunk / rep["plain_s"]
+    plain_state = plain.state
+    del plain
+
+    fsync_ms = []
+    real_fsync = oplog.fs_fsync
+
+    def timed_fsync(f):
+        t = time.perf_counter()
+        real_fsync(f)
+        fsync_ms.append((time.perf_counter() - t) * 1e3)
+
+    with tempfile.TemporaryDirectory(prefix="scc-durable-") as tmp:
+        store = os.path.join(tmp, "store")
+        oplog.fs_fsync = timed_fsync  # every WAL fsync, timed
+        try:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            writer = DurableService(
+                cfg, store, state=boot, sync_every=1, snapshot_every=4,
+                snapshot_keep=10 ** 6, trim_on_snapshot=False, **knobs)
+            rep["boot_snapshot_s"] = time.perf_counter() - t0
+            boot_gen = writer.gen  # the recompute took one generation
+            rep["snapshot_bytes"] = os.path.getsize(  # the boot snapshot
+                os.path.join(snap_dir(store), f"ckpt_{boot_gen}.npz"))
+            rset = ReplicaSet(store, replicas, query_buckets=(n_same,),
+                              poll_interval=0.01, device=dev,
+                              scan_lengths=smscc.SCAN_LENGTHS)
+            watches = [GenWatch(writer)] + [GenWatch(r.service)
+                                            for r in rset.replicas]
+            stop = threading.Event()
+            rounds = [[] for _ in range(readers)]
+            errors = []
+
+            def reader(i):
+                wclient = GraphClient(writer)
+                rclient = GraphClient(writer, broker=rset)
+                rng = np.random.default_rng(SEED + 7919 * (i + 1))
+                flip, last = False, 0
+                try:
+                    while not stop.is_set():
+                        t = time.perf_counter()
+                        op = (RemoveEdge if flip else AddEdge)(2 * i,
+                                                               2 * i + 1)
+                        flip = not flip
+                        token = wclient.submit_many([op])[0].gen
+                        floor = max(token, last)
+                        qu = rng.integers(0, nv, n_same)
+                        qv = rng.integers(0, nv, n_same)
+                        res = rclient.submit_many(
+                            [SameSCC(int(a), int(b)) for a, b in
+                             zip(qu, qv)],
+                            consistency=Consistency.AT_LEAST(floor))
+                        if res[0].gen < floor:
+                            raise CheckFailed(f"reader {i}: stamp "
+                                              f"{res[0].gen} < {floor}")
+                        last = res[0].gen
+                        rounds[i].append((time.perf_counter() - t) * 1e3)
+                except Exception as e:
+                    errors.append(e)
+
+            threads = [threading.Thread(target=reader, args=(i,),
+                                        daemon=True)
+                       for i in range(readers)]
+            for t in threads:
+                t.start()
+            try:
+                rep["writer_s"] = feed(writer)
+            finally:
+                stop.set()
+                for t in threads:
+                    t.join()
+            if errors:
+                raise errors[0]
+            rep["writer_ops_per_s"] = n_chunks * chunk / rep["writer_s"]
+            final_gen, final_state = writer.gen, writer.state
+            t0 = time.perf_counter()
+            rset.wait_all_for_gen(final_gen, timeout=600)
+            rep["replica_catch_up_s"] = time.perf_counter() - t0
+            for w in watches:
+                w.close()
+            for r in rset.replicas:
+                check(r.gen == final_gen, f"replica {r.replica_id} at gen "
+                      f"{r.gen}, writer at {final_gen}")
+                check(states_equal(r.service.state, final_state),
+                      f"replica {r.replica_id} differs from the writer")
+            lag = [(w.seen[g] - watches[0].seen[g]) * 1e3
+                   for w in watches[1:] for g in watches[0].seen
+                   if g in w.seen and g > 0]
+            rs = rset.stats()
+            rset.stop()
+            rep.update(
+                gen=final_gen, replicas_equal_writer=True,
+                touches=sum(len(r) for r in rounds),
+                ryw_round_ms_p50=pctl(sum(rounds, []), 50),
+                ryw_round_ms_p99=pctl(sum(rounds, []), 99),
+                replica_lag_ms_p50=pctl(lag, 50),
+                replica_lag_ms_p99=pctl(lag, 99),
+                replica_lag_samples=len(lag),
+                routed_fresh=rs["routed_fresh"],
+                routed_stale=rs["routed_stale"],
+                replica_gen_waits=rs["gen_waits"])
+            if cuda:
+                rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+
+            # crash: no close; the background snapshot in flight is let
+            # finish, the WAL is left open as a killed process leaves it
+            writer.crash()
+            if writer._snap_thread is not None:
+                writer._snap_thread.join()
+            rep["snapshots"] = writer.snapshot_count
+            rep["last_snapshot_gen"] = writer._last_snap_gen
+            segs = oplog.list_segments(wal_dir(store))
+            rep["wal_bytes"] = sum(os.path.getsize(p) for _, p in segs)
+            rep["wal_records"] = len(oplog.read_log(wal_dir(store)))
+            rep["fsyncs"] = len(fsync_ms)
+            rep["fsync_ms_p50"] = pctl(fsync_ms, 50)
+            rep["fsync_ms_p99"] = pctl(fsync_ms, 99)
+            t0 = time.perf_counter()
+            rec = DurableService.open(store, device=dev, snapshot_every=0,
+                                      scan_lengths=smscc.SCAN_LENGTHS)
+            sync(torch, dev)
+            rep["recovery_s"] = time.perf_counter() - t0
+            rep["recovery_restore_s"] = rec.restore_s
+            rep["recovery_replay_s"] = rec.replay_s
+            rep["recovery_replayed_records"] = rec.replayed_wal_records
+            check(rec.gen == final_gen and
+                  states_equal(rec.state, final_state),
+                  f"recovery at gen {rec.gen} differs from the writer's "
+                  f"last commit (gen {final_gen})")
+            rec.close()
+            t0 = time.perf_counter()
+            scr = scratch_replay(store, from_step=boot_gen, device=dev)
+            sync(torch, dev)
+            rep["scratch_replay_s"] = time.perf_counter() - t0
+            check(scr.gen == final_gen and
+                  states_equal(scr.state, final_state),
+                  "scratch replay differs from the writer's last commit")
+            rep["launches"] = kernels.launch_counts()
+        finally:
+            oplog.fs_fsync = real_fsync
+        del writer, rset, rec, scr, final_state
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # a store written on the card opens bit-identically on the CPU
+        t0 = time.perf_counter()
+        s_cfg = smscc.config(n_vertices=small["nv"],
+                             edge_capacity=small["cap"])
+        s_boot, _ = boot_state(torch, dev, s_cfg, preload_deg)
+        s_store = os.path.join(tmp, "small")
+        s_writer = DurableService(
+            s_cfg, s_store, state=s_boot, sync_every=1, snapshot_every=8,
+            snapshot_keep=10 ** 6, trim_on_snapshot=False,
+            buckets=(8, small["bucket"]), scan_lengths=smscc.SCAN_LENGTHS,
+            proactive_grow=True)
+        feed(s_writer, s_cfg, small["chunk"], small["n_chunks"])
+        s_writer.close()
+        cpu = torch.device("cpu")
+        on_cpu = DurableService.open(s_store, device=cpu, snapshot_every=0)
+        cpu_scr = scratch_replay(s_store, from_step=int(s_boot.gen),
+                                 device=cpu)
+        same = {"open": on_cpu.gen == s_writer.gen and
+                states_equal(on_cpu.state, s_writer.state),
+                "scratch_replay": cpu_scr.gen == s_writer.gen and
+                states_equal(cpu_scr.state, s_writer.state)}
+        rep["card_store_on_cpu"] = dict(
+            n_vertices=small["nv"], edge_capacity=small["cap"],
+            gen=s_writer.gen, cpu_replayed_records=on_cpu.replayed_wal_records,
+            seconds=time.perf_counter() - t0, **same)
+        check(all(same.values()),
+              f"a store written on the card opens differently on the CPU: "
+              f"{same}")
+        on_cpu.close()
+        del s_writer, on_cpu, cpu_scr, s_boot
+
+        # concurrent readers over one broker, at update_1m
+        svc = SCCService(cfg, state=boot, **knobs)
+        kernels.reset_launch_counts()
+        cc = stream.run_concurrent_stream(
+            svc, n_chunks * chunk, readers=2, add_frac=0.7, chunk=chunk,
+            n_queries=n_same, reach_queries=32, seed=SEED)
+        rep["concurrent"] = dict(
+            {k: cc[k] for k in ("ops", "queries", "readers", "wall_s",
+                                "ops_per_s", "queries_per_s",
+                                "combined_per_s", "gen", "flushes",
+                                "gen_waits")},
+            launches=kernels.launch_counts())
+        check(states_equal(svc.state, plain_state),
+              "the concurrent run ended off the plain run's state")
+        del svc
+
+        # the serve entry point at the reference's own defaults
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        srv = serve.serve_smscc(32, replicas=2,
+                                directory=os.path.join(tmp, "serve"),
+                                device=str(dev))
+        rep["serve_replicas"] = dict(
+            {k: srv[k] for k in ("replicas", "readers", "ops", "touches",
+                                 "queries", "ops_per_s", "queries_per_s",
+                                 "combined_per_s", "routed_fresh",
+                                 "routed_stale")},
+            seconds=time.perf_counter() - t0,
+            launches=kernels.launch_counts())
+    return rep
+
+
 def sass_counts(build, name, ops) -> dict:
     """Lines of ``cuobjdump -sass`` of a built kernel library that hold
     each opcode."""
@@ -1251,7 +1586,18 @@ def main() -> int:
     emit("card_vs_cpu", seconds=time.perf_counter() - t0,
          n_results=len(runs["cuda"][0]), **same)
     check(all(same.values()), f"card and CPU runs differ: {same}")
+    torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    dur = durable_path(torch, dev)
+    dur["seconds"] = time.perf_counter() - t0
+    dur["main_path"] = {k: main_rep[k] for k in
+                        ("ops_per_s", "queries_per_s")}
+    emit("durable_path", **dur)
+    for k in ("frontier_min", "hash_probe"):
+        check(dur["launches"][k] > 0, f"durable path: {k} never launched")
+        check(dur["concurrent"]["launches"][k] > 0,
+              f"concurrent readers' path: {k} never launched")
     torch.cuda.empty_cache()
 
     bag_rep = bag_path(torch, dev)

@@ -40,8 +40,10 @@ def state_from_numpy(arrays: Dict[str, np.ndarray],
         raise ValueError(f"missing state fields: {sorted(missing)}")
 
     def t(name):
-        a = np.ascontiguousarray(np.asarray(arrays[name], FIELDS[name]))
-        return torch.from_numpy(a.copy()).to(device)
+        # np.array, not ascontiguousarray: that one turns a 0-d scalar
+        # (n_ccs, gen, overflow) into shape [1]
+        a = np.array(arrays[name], FIELDS[name], order="C")
+        return torch.from_numpy(a).to(device)
 
     return gs.GraphState(
         v_alive=t("v_alive"), ccid=t("ccid"),

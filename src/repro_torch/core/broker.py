@@ -1,5 +1,5 @@
 """Thread-safe reader path for the streaming SCC service (a port of
-``repro.core.broker``, without the fault-injection stall hook).
+``repro.core.broker``).
 
 The paper's readers (arXiv:1804.01276, and the non-blocking sibling
 arXiv:1809.00896) run *concurrently* with a fixed pool of update threads
@@ -49,6 +49,7 @@ import numpy as np
 
 from repro_torch.core import service as svc_mod
 from repro_torch.fault import errors as fault_errors
+from repro_torch.fault.inject import maybe_stall
 
 __all__ = ["QueryBroker"]
 
@@ -213,6 +214,7 @@ class QueryBroker:
         committed snapshot covers; returns the number of point queries
         served.  Requests still waiting on a commit are re-queued (or
         failed, with ``fail_waiting=True`` -- the stop path)."""
+        maybe_stall("broker_flush")
         with self._cv:
             batch = {k: reqs for k, reqs in self._pending.items() if reqs}
             for k in batch:
@@ -225,9 +227,8 @@ class QueryBroker:
         # cfg may be read mid-grow relative to st, but the only mutable
         # field (edge_capacity) never enters a query: n_vertices/max_inner
         # are fixed for the service's lifetime.
-        st = self._svc.state
+        st, gen = self._svc.head
         cfg = self._svc.cfg
-        gen = int(st.gen)
         # gen-wait hook: split off requests whose floor is above the
         # pinned generation; they wait for a later commit without
         # delaying the ready ones.

@@ -33,3 +33,19 @@ def community_sizes(state: gs.GraphState):
     hist = torch.zeros(nv + 1, dtype=torch.int32, device=idx.device)
     return hist.index_add_(0, idx, state.v_alive.int())[:nv]
 
+
+def largest_community(state: gs.GraphState):
+    """(representative id, size) of the largest SCC."""
+    sizes = community_sizes(state)
+    rep = sizes.argmax()
+    return rep.int(), sizes[rep]
+
+
+def same_community_pairs(state: gs.GraphState, users):
+    """All-pairs community matrix for a user cohort (friend-suggestion app).
+
+    users: int32[K] -> bool[K, K]; entry (i, j) = suggest i<->j candidate.
+    """
+    lab = belongs_to_community(state, users)
+    ok = lab < state.ccid.shape[0]
+    return (lab[:, None] == lab[None, :]) & ok[:, None] & ok[None, :]

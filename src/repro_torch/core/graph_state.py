@@ -146,6 +146,14 @@ def edge_coo(state: GraphState):
     return t.src, t.dst, t.state == et.LIVE
 
 
+def live_edge_count(state: GraphState) -> torch.Tensor:
+    return (state.edges.state == et.LIVE).sum().int()
+
+
+def live_vertex_count(state: GraphState) -> torch.Tensor:
+    return state.v_alive.sum().int()
+
+
 def recount_ccs(state: GraphState) -> GraphState:
     """n_ccs = #representatives (v alive with ccid[v] == v)."""
     nv = state.ccid.shape[0]

@@ -70,6 +70,16 @@ def backward_reach(src, dst, live, seeds, allowed, max_iters: int,
                          impl=impl)
 
 
+def is_reachable(src, dst, live, u, v, allowed, max_iters: int,
+                 impl: str = "auto"):
+    """Paper's ``isReachable`` (used by AddEdge step 4): scalar u ~> v?"""
+    seeds = torch.zeros_like(allowed)
+    seeds[u] = True
+    reached, _ = forward_reach(src, dst, live, seeds, allowed, max_iters,
+                               impl=impl)
+    return reached[v]
+
+
 def label_round(src, dst, live, allowed, lab, shortcut: bool = False,
                 impl: str = "auto"):
     """One round of :func:`propagate_min_labels`: (next, changed).  int32

@@ -14,6 +14,10 @@ design).  What differs in the port:
   ``inflight_window`` of dispatched super-chunks as in the JAX service.
 * The service runs on ``cuda`` unless ``device`` (or a given ``state``)
   says otherwise.
+* The committed generation is mirrored on the host: every step bumps
+  ``state.gen`` by exactly one, so the service counts its steps instead of
+  reading the device.  ``gen`` (read by routing, the WAL and replicas on
+  every request or record) never waits behind queued device work.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 from repro_torch.core import community, dynamic, edge_table as et
 from repro_torch.core import graph_state as gs
 from repro_torch.core import reach
+from repro_torch.core.sync import SYNCS
 from repro_torch.fault import errors as fault_errors
 
 _MAX_GROW_ROUNDS = 16
@@ -150,7 +155,11 @@ class SCCService:
         self._proactive_grow = proactive_grow
         # host-side upper bound on the live edge count
         self._live_ub = cfg.edge_capacity
-        self._committed = self._state
+        # host mirror of self._state.gen (one counted read, here only)
+        self._gen = SYNCS.ints(self._state.gen)[0]
+        # (committed state, its generation), published as one tuple so a
+        # reader pins the two coherently without a lock
+        self._head = (self._state, self._gen)
         self._apply_lock = threading.RLock()
         self._commit_cv = threading.Condition()
         # idempotent re-submit window: per client session, the last
@@ -184,11 +193,27 @@ class SCCService:
     @property
     def state(self) -> gs.GraphState:
         """Latest committed state (safe to query)."""
-        return self._committed
+        return self._head[0]
 
     @property
     def gen(self) -> int:
-        return int(self._committed.gen)
+        """The committed generation (a host int; no device read)."""
+        return self._head[1]
+
+    @property
+    def head(self) -> tuple:
+        """``(state, gen)`` of the latest commit, pinned together."""
+        return self._head
+
+    def _install(self, state: gs.GraphState, cfg: gs.GraphConfig):
+        """Replace working and committed state wholesale (a replica's
+        snapshot resync); caller holds ``_apply_lock``."""
+        self._state, self._cfg = state, cfg
+        self._gen = SYNCS.ints(state.gen)[0]
+        self._live_ub = cfg.edge_capacity
+        with self._commit_cv:
+            self._head = (state, self._gen)
+            self._commit_cv.notify_all()
 
     # ---------------------------------------------------------- updates ---
 
@@ -231,24 +256,24 @@ class SCCService:
         u = np.asarray(u, np.int32)
         v = np.asarray(v, np.int32)
         with self._apply_lock:
-            entry_state, entry_cfg = self._state, self._cfg
+            entry = self._state, self._cfg, self._gen
             entry_stats = self._stats_snapshot()
             try:
                 if self._proactive_grow:
                     self._maybe_grow_proactive(kind, u, v)
-                base_state, base_cfg = self._state, self._cfg
-                ok, replay = None, (0, None)
+                base = self._state, self._cfg, self._gen
+                ok, replay = None, (0, None, None)
                 if self._inflight_window > 0:
                     ok, replay = self._apply_pipelined(kind, u, v)
                 if replay is not None:  # overflow (or pipeline off)
-                    start, restore = replay
+                    start, restore, restore_gen = replay
                     self.fallback_chunks += 1
                     if restore is None:  # pipeline off: start from the base
                         start = 0
-                        self._state, self._cfg = base_state, base_cfg
+                        self._state, self._cfg, self._gen = base
                         ok = np.zeros(kind.shape[0], bool)
                     else:  # prefix super-chunks stay applied
-                        self._state = restore
+                        self._state, self._gen = restore, restore_gen
                     for sl, ops in self._sched.chunks(kind[start:],
                                                       u[start:], v[start:]):
                         n_real = sl.stop - sl.start
@@ -261,11 +286,11 @@ class SCCService:
                     self._live_ub + int(np.sum(kind == dynamic.ADD_EDGE)))
                 self._maybe_compact()
             except Exception:
-                self._state, self._cfg = entry_state, entry_cfg
+                self._state, self._cfg, self._gen = entry
                 self._stats_restore(entry_stats)
                 raise
             with self._commit_cv:
-                self._committed = self._state
+                self._head = (self._state, self._gen)
                 self._commit_cv.notify_all()
         return ok
 
@@ -334,6 +359,7 @@ class SCCService:
         ovf: torch.Tensor  # int32[K]
         rstats: gs.RepairStats  # K-tuples
         entry: gs.GraphState  # input state: the partial-replay anchor
+        entry_gen: int
         scanned: bool
 
     def _apply_pipelined(self, kind, u, v) -> tuple:
@@ -343,11 +369,11 @@ class SCCService:
 
         Returns ``(ok, replay)``: ``replay`` is None when the whole chunk
         applied cleanly (``self._state`` advanced), else ``(start,
-        state)``: re-run ops from chunk offset ``start`` on the serial
-        grow-and-replay path, from the offending super-chunk's input
-        ``state`` (its prefix stays applied).
+        state, gen)``: re-run ops from chunk offset ``start`` on the
+        serial grow-and-replay path, from the offending super-chunk's
+        input ``state`` at generation ``gen`` (its prefix stays applied).
         """
-        state = self._state
+        state, gen = self._state, self._gen
         ok = np.zeros(kind.shape[0], bool)
         pending: collections.deque = collections.deque()
         repair_rows: list = []
@@ -369,14 +395,15 @@ class SCCService:
         bad = None
         for slices, ops in self._sched.super_chunks(kind, u, v,
                                                     self._scan_lengths):
-            entry = state
+            entry, entry_gen = state, gen
             state, ok_dev, ovf, rstats = dynamic.apply_batch_scan(
                 state, ops, self._cfg)
             k = len(slices)
+            gen += k  # one generation per step
             if k > 1:
                 self.scan_dispatches += 1
             pending.append(self._InFlight(slices, ok_dev, ovf, rstats,
-                                          entry, k > 1))
+                                          entry, entry_gen, k > 1))
             if len(pending) > self._inflight_window:
                 bad = resolve_oldest()
                 if bad is not None:
@@ -387,8 +414,8 @@ class SCCService:
             self._record_repair(t, rv, re_)
         self.scanned_chunks += scanned
         if bad is not None:
-            return ok, (bad.slices[0].start, bad.entry)
-        self._state = state
+            return ok, (bad.slices[0].start, bad.entry, bad.entry_gen)
+        self._state, self._gen = state, gen
         return ok, None
 
     def _record_repair(self, tier: int, region_v: int, region_e: int):
@@ -404,6 +431,7 @@ class SCCService:
                 "max_edge_capacity too small for workload?")
         self._state, ok_dev, ovf_dev, rstats = dynamic.apply_batch_stats(
             self._state, ops, self._cfg)
+        self._gen += 1
         ok = ok_dev.cpu().numpy().copy()
         self._record_repair(*rstats)
         if int(ovf_dev) == 0:
@@ -480,45 +508,46 @@ class SCCService:
     # ---------------------------------------------------------- queries ---
 
     def same_scc(self, u, v) -> Snapshot:
-        st = self._committed
-        return Snapshot(same_scc_on(st, self._cfg, u, v), int(st.gen))
+        st, gen = self._head
+        return Snapshot(same_scc_on(st, self._cfg, u, v), gen)
 
     def reachable(self, u, v) -> Snapshot:
-        st = self._committed
-        return Snapshot(reachable_on(st, self._cfg, u, v), int(st.gen))
+        st, gen = self._head
+        return Snapshot(reachable_on(st, self._cfg, u, v), gen)
 
     def scc_members(self, u) -> Snapshot:
         """bool[NV] membership mask of u's SCC."""
-        st = self._committed
-        return Snapshot(members_on(st, self._cfg, [u])[0], int(st.gen))
+        st, gen = self._head
+        return Snapshot(members_on(st, self._cfg, [u])[0], gen)
 
     def community_of(self, u) -> Snapshot:
-        st = self._committed
-        return Snapshot(community_of_on(st, self._cfg, u), int(st.gen))
+        st, gen = self._head
+        return Snapshot(community_of_on(st, self._cfg, u), gen)
 
     def community_sizes(self) -> Snapshot:
-        st = self._committed
-        return Snapshot(community_sizes_on(st, self._cfg), int(st.gen))
+        st, gen = self._head
+        return Snapshot(community_sizes_on(st, self._cfg), gen)
 
     # ------------------------------------------------------------- misc ---
 
     def edge_set(self) -> set:
         """Host copy of the live edge set."""
-        t = self._committed.edges
+        t = self.state.edges
         live = (t.state == et.LIVE).cpu().numpy()
         return set(zip(t.src.cpu().numpy()[live].tolist(),
                        t.dst.cpu().numpy()[live].tolist()))
 
     def stats(self) -> dict:
-        live, tomb = et.fill_stats(self._committed.edges)
+        st = self.state
+        live, tomb = et.fill_stats(st.edges)
         return {
             "device": str(self._device),
             "gen": self.gen,
-            "n_ccs": int(self._committed.n_ccs),
+            "n_ccs": int(st.n_ccs),
             "live_edges": int(live),
             "tombstones": int(tomb),
             "edge_capacity": self._cfg.edge_capacity,
-            "overflow_total": int(self._committed.overflow),
+            "overflow_total": int(st.overflow),
             "grows": self.grow_count,
             "proactive_grows": self.proactive_grows,
             "replayed_ops": self.replayed_ops,

@@ -3,13 +3,19 @@ SCC service.
 
     python -m repro_torch.launch.serve --steps 64
     python -m repro_torch.launch.serve --steps 8 --device cpu
+    python -m repro_torch.launch.serve --steps 64 --readers 2
+    python -m repro_torch.launch.serve --steps 20 --readers 2 \
+        --replicas 2 --dir /tmp/scc-store
     python -m repro_torch.launch.serve --arch qwen3-14b --device cpu --steps 4
 
 ``--arch smscc`` (the default): a typed GraphClient update stream with
 SameSCC / Reachable query batches between chunks, over an SCCService
-booted with every vertex slot live.  An LM arch: the arch's smoke config
-with random weights serves one batch of prompts, prefill then greedy
-decode.  Runs on ``cuda`` unless ``--device`` says otherwise.
+booted with every vertex slot live; ``--readers N`` moves the queries to
+N reader threads over one shared broker, and ``--replicas N --dir D``
+makes the store durable (a WAL-backed writer in ``D``) and serves the
+readers from N replicas tailing its log.  An LM arch: the arch's smoke
+config with random weights serves one batch of prompts, prefill then
+greedy decode.  Runs on ``cuda`` unless ``--device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -29,14 +35,39 @@ from repro_torch.models import transformer as tf
 
 
 def serve_smscc(steps: int, nv: int = 2048, chunk: int = 256,
+                readers: int = 0, replicas: int = 0,
+                directory: str | None = None,
                 device: str = gs.DEFAULT_DEVICE) -> stream.StreamReport:
+    """The paper's on-line mode: a typed GraphClient update stream and
+    query batches over the committed snapshot.  With ``readers > 0`` the
+    queries move to per-reader client sessions over one QueryBroker that
+    overlaps the update pipeline.  With ``replicas > 0`` the store goes
+    durable instead: a WAL-backed writer plus N read replicas tailing the
+    log serve the readers' read-your-writes rounds
+    (:func:`repro_torch.launch.replica.run_replicated_stream`; needs
+    ``directory`` for the durable store)."""
+    if replicas > 0:
+        from repro_torch.launch.replica import run_replicated_stream
+        if directory is None:
+            raise SystemExit("--replicas needs --dir (durable store root)")
+        rep = run_replicated_stream(
+            directory, replicas=replicas, n_ops=steps * 32,
+            readers=max(readers, 1), device=device)
+        print(rep.pretty())
+        return rep
+
     cfg = smscc.config(n_vertices=nv, edge_capacity=max(1024, nv),
                        max_probes=64, max_outer=64, max_inner=128)
     svc = SCCService(cfg, buckets=(64, chunk),
                      state=gs.all_singletons(cfg, device),
                      scan_lengths=smscc.SCAN_LENGTHS, proactive_grow=True)
-    rep = stream.run_stream(svc, n_ops=steps * chunk, add_frac=0.7,
-                            query_frac=0.5, chunk=chunk, n_queries=1024)
+    if readers > 0:
+        rep = stream.run_concurrent_stream(
+            svc, n_ops=steps * chunk, readers=readers, add_frac=0.7,
+            chunk=chunk, n_queries=1024)
+    else:
+        rep = stream.run_stream(svc, n_ops=steps * chunk, add_frac=0.7,
+                                query_frac=0.5, chunk=chunk, n_queries=1024)
     print(rep.pretty())
     return rep
 
@@ -154,6 +185,14 @@ def main():
     ap.add_argument("--arch", default="smscc")
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--device", default=gs.DEFAULT_DEVICE)
+    ap.add_argument("--readers", type=int, default=0,
+                    help="smscc only: concurrent reader threads (0 = "
+                         "serial query interleaving)")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="smscc only: serve reads from N WAL-tailing "
+                         "replicas over a durable writer (needs --dir)")
+    ap.add_argument("--dir", dest="directory", default=None,
+                    help="smscc only: durable store root for --replicas")
     args = ap.parse_args()
     mod = configs.get(args.arch)
     if mod.FAMILY == "lm":
@@ -164,7 +203,9 @@ def main():
               f"({rep['decode_tok_per_s']} tok/s) on {rep['device']}")
         print("sample:", rep["tokens"][0][:16])
     else:
-        serve_smscc(args.steps, device=args.device)
+        serve_smscc(args.steps, readers=args.readers,
+                    replicas=args.replicas, directory=args.directory,
+                    device=args.device)
 
 
 if __name__ == "__main__":

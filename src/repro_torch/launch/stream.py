@@ -1,14 +1,15 @@
-"""Bucketed stream scheduling and the typed-client stream driver (a port
-of ``repro.launch.stream`` without the concurrent-reader driver).
+"""Bucketed stream scheduling and the typed-client stream drivers (a port
+of ``repro.launch.stream``).
 
 The scheduler cuts an arbitrary-length op chunk into a small registry of
 batch shapes: the largest buckets that fit, and the tail padded with NOP
-lanes up to the smallest bucket that holds it.  The driver `run_stream`
-speaks the typed API: every update and query goes through a
-:class:`repro_torch.api.GraphClient` session.
+lanes up to the smallest bucket that holds it.  The drivers
+(`run_stream`, `run_concurrent_stream`) speak the typed API: every update
+and query goes through a :class:`repro_torch.api.GraphClient` session.
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Iterator, List, Optional, Sequence, Tuple
 
@@ -16,8 +17,8 @@ import numpy as np
 
 from repro_torch.core import dynamic
 
-__all__ = ["BucketedScheduler", "run_stream", "StreamReport",
-           "typed_op_stream"]
+__all__ = ["BucketedScheduler", "run_stream", "run_concurrent_stream",
+           "StreamReport", "typed_op_stream"]
 
 
 class BucketedScheduler:
@@ -217,4 +218,107 @@ def run_stream(service, n_ops: int, *, add_frac: float = 0.6,
         query_launches=spent["query"]["launches"],
     )
     rep.update(client.stats())
+    return rep
+
+
+def run_concurrent_stream(service, n_ops: int, *, readers: int = 2,
+                          add_frac: float = 0.6, chunk: int = 512,
+                          n_queries: int = 256, reach_queries: int = 32,
+                          include_vertex_ops: bool = True, seed: int = 0,
+                          query_buckets: Sequence[int] | None = None,
+                          record: Optional[list] = None) -> StreamReport:
+    """The paper's serving shape: ``readers`` query threads overlap a live
+    update stream (Fig 4/5's concurrent mode).
+
+    The main thread applies the same deterministic typed update stream as
+    :func:`run_stream` through its own :class:`repro_torch.api.GraphClient`
+    session; meanwhile each reader thread holds its own client session
+    over one shared, dispatcher-fed
+    :class:`repro_torch.core.broker.QueryBroker` and issues coalesced
+    SameSCC (and occasional Reachable) batches, checking that the
+    generations it observes never go backwards.  Queries are
+    free-running: throughput is whatever the readers manage while the
+    updates execute.  The wall time ends in a device synchronise.
+    ``record`` collects each reader batch as ``(reader, kind, u, v,
+    values, gen)`` so a caller can check it against an oracle.
+    """
+    import torch
+
+    from repro_torch.api import GraphClient, Reachable, SameSCC
+    from repro_torch.core.broker import QueryBroker
+
+    nv = service.cfg.n_vertices
+    # bucket registry sized to the two request shapes readers issue, so a
+    # lone reachability batch is never padded up to the SameSCC size
+    buckets = query_buckets or tuple(sorted(
+        {n_queries} | ({reach_queries} if reach_queries else set())))
+    broker = QueryBroker(service, buckets=buckets).start()
+    updater = GraphClient(service, broker=broker)
+    stop = threading.Event()
+    q_counts = [0] * readers
+    errors: list = []
+
+    def reader(i: int):
+        client = GraphClient(service, broker=broker)
+        rng = np.random.default_rng(seed + 7919 * (i + 1))
+        last_gen = -1
+        try:
+            while not stop.is_set():
+                batches = [("same", rng.integers(0, nv, n_queries),
+                            rng.integers(0, nv, n_queries))]
+                if reach_queries and rng.random() < 0.25:
+                    batches.append(("reach", batches[0][1][:reach_queries],
+                                    batches[0][2][:reach_queries]))
+                for kind, qu, qv in batches:
+                    op = SameSCC if kind == "same" else Reachable
+                    res = client.submit_many(
+                        [op(int(a), int(b)) for a, b in zip(qu, qv)])
+                    gen = res[0].gen
+                    if gen < last_gen:
+                        raise AssertionError(
+                            f"reader {i} saw generation go backwards: "
+                            f"{gen} < {last_gen}")
+                    last_gen = gen
+                    q_counts[i] += len(qu)
+                    if record is not None:
+                        record.append((i, kind, qu, qv,
+                                       [r.value for r in res], gen))
+        except Exception as e:  # surfaced after join
+            errors.append(e)
+
+    threads = [threading.Thread(target=reader, args=(i,), daemon=True)
+               for i in range(readers)]
+    applied = accepted = step = 0
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    try:
+        while applied < n_ops:
+            n = min(chunk, n_ops - applied)
+            ops = typed_op_stream(nv, n, step=step, add_frac=add_frac,
+                                  seed=seed,
+                                  include_vertex_ops=include_vertex_ops)
+            results = updater.submit_many(ops)
+            accepted += sum(r.value for r in results)
+            applied += n
+            step += 1
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+        broker.stop()
+    if service.device.type == "cuda":
+        torch.cuda.synchronize(service.device)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    queries = sum(q_counts)
+    rep = StreamReport(
+        ops=applied, accepted=accepted, queries=queries, readers=readers,
+        wall_s=wall,
+        ops_per_s=applied / wall if wall else 0.0,
+        queries_per_s=queries / wall if wall else 0.0,
+        combined_per_s=(applied + queries) / wall if wall else 0.0,
+    )
+    rep.update(updater.stats())
     return rep

@@ -442,3 +442,48 @@ def test_service_on_card_matches_cpu(cuda):
         results.append((rep["accepted"], svc.state.ccid.cpu().tolist(),
                         svc.edge_set()))
     assert results[0] == results[1]
+
+
+def test_durable_writer_replica_and_recovery_on_card_match_cpu(cuda,
+                                                               tmp_path):
+    """A durable writer, one WAL-tailing replica and a crash recovery on
+    the card, bit-identical to the same run on the CPU: acks, WAL bytes,
+    the replica's and the recovered state."""
+    from repro_torch.api import GraphClient
+    from repro_torch.ckpt import oplog
+    from repro_torch.ckpt.durable import DurableService, wal_dir
+    from repro_torch.core.replicas import Replica
+    from repro_torch.launch.replica import states_equal
+
+    cfg = tgs.GraphConfig(n_vertices=256, edge_capacity=256, max_probes=32,
+                          region_vertex_capacity=64)
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        store = str(tmp_path / dev.type)
+        writer = DurableService(cfg, store, state=tgs.all_singletons(cfg, dev),
+                                buckets=(64,), proactive_grow=True,
+                                snapshot_every=3, segment_bytes=4096,
+                                snapshot_keep=10 ** 6, trim_on_snapshot=False)
+        rep = Replica(store, auto_tail=False, query_buckets=(8,), device=dev)
+        client = GraphClient(writer)
+        acks = []
+        for step in range(6):
+            ops = stream.typed_op_stream(256, 96, step=step, add_frac=0.8,
+                                         seed=3)
+            acks.append([(r.value, r.gen) for r in client.submit_many(ops)])
+            rep.tail_once(max_records=None)
+        assert rep.gen == writer.gen
+        assert states_equal(rep.service.state, writer.state)
+        final = writer.state
+        writer.crash()
+        if writer._snap_thread is not None:
+            writer._snap_thread.join()
+        rec = DurableService.open(store, device=dev, snapshot_every=0)
+        assert rec.gen == writer.gen and states_equal(rec.state, final)
+        rec.close()
+        runs[dev.type] = (acks, final, {
+            p.rsplit("/", 1)[1]: open(p, "rb").read()
+            for _, p in oplog.list_segments(wal_dir(store))})
+    assert runs["cpu"][0] == runs["cuda"][0]
+    assert states_equal(runs["cpu"][1], runs["cuda"][1])
+    assert runs["cpu"][2] == runs["cuda"][2]

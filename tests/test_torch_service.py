@@ -243,6 +243,11 @@ def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("ckpt/checkpoint.py", "ckpt/oplog.py", "ckpt/durable.py",
+                "core/replicas.py", "fault/inject.py", "ha/lease.py",
+                "launch/replica.py", "launch/stream.py"):
+        assert port / rel in files, rel
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
