@@ -72,7 +72,21 @@ Phases, each printing one line or more:
    with 2 readers must end on the plain run's state; and
    ``serve_smscc(replicas=2)`` runs at the reference's defaults.  The
    stores live in a temporary directory, removed afterwards;
-10. the kernels line (JSON), the card line, and the device line last.
+10. tenant path (run after phase 9, ``tenant_path``): a TenantEngine
+   holding 256 tenants of 4096 vertices and 2^14 slots (out-degree-2
+   preload: the full tier), 64 at 2^13 slots (no preload: the compact
+   tier) and one booted at 1024 slots (it overflows, replays solo and
+   migrates) takes 8 waves of one 1024-op chunk per tenant; every tenant
+   must equal its own single-tenant SCCService fed the same chunks on
+   the card (ops/s of both), labels a static recompute for a sample;
+   class A's host syncs per wave at T = 256 within 2x of T = 8; 8 tenants
+   on the card equal the CPU; ``serve_tenants`` plain and with a durable
+   root (its stores open equal on the CPU); one chaos soak seed.  The
+   tenant-row forms of frontier_min and hash_probe are held to their
+   plain versions at class A's shape and timed;
+11. the kernels line (JSON; frontier_min and hash_probe also carry their
+   tenant-row form under ``lanes``), the card line, and the device line
+   last.
 
 Any failed check exits non-zero.  Without a CUDA card it exits 1 before
 printing any result.
@@ -953,13 +967,22 @@ def mind_ids(torch, dev, g, n_bags=512, bag_len=50):
 
 def probe_visits(torch, table, base, u, v, max_probes, lanes=None) -> int:
     """Slots the walk of every lane (of ``lanes`` where given) reads on
-    these inputs (the data-dependent byte count of the probe bound)."""
-    cap = table.src.shape[0]
+    these inputs (the data-dependent byte count of the probe bound).
+    [T, C] tables take [T, B] lanes, each walking its own row."""
+    cap = table.src.shape[-1]
+    off = 0
+    if table.src.dim() == 2:
+        t, b = u.shape
+        off = (torch.arange(t, device=u.device) * cap)[:, None].expand(
+            t, b).reshape(-1)
+        table = type(table)(*(c.reshape(-1) for c in table))
+        base, u, v = base.reshape(-1), u.reshape(-1), v.reshape(-1)
+        lanes = None if lanes is None else lanes.reshape(-1)
     done = (torch.zeros(u.shape[0], dtype=torch.bool, device=u.device)
             if lanes is None else ~lanes)
     visits = torch.zeros((), dtype=torch.int64, device=u.device)
     for i in range(max_probes):
-        pos = ((base + i) & (cap - 1)).long()
+        pos = (((base + i) & (cap - 1)) + off).long()
         st = table.state[pos]
         visits += (~done).sum()
         hit = (st == 1) & (table.src[pos] == u) & (table.dst[pos] == v)
@@ -1482,6 +1505,335 @@ def durable_path(torch, dev, *, nv=2 ** 20, cap=2 ** 23, bucket=8192,
     return rep
 
 
+# ------------------------------------------------------------ phase 10 ---
+
+def tenant_ops(nv, chunk, waves, seed):
+    """One tenant's ``waves`` chunks of the paper's mix, as (kind, u, v)
+    numpy arrays (the typed stream's own draws)."""
+    import numpy as np
+
+    from repro_torch.launch import workload
+    out = []
+    for w in range(waves):
+        ops = workload.op_stream(nv, chunk, step=w, add_frac=0.7, seed=seed)
+        out.append(tuple(np.asarray(x, np.int32) for x in ops))
+    return out
+
+
+def boot_lanes(torch, dev, cfg, n, preload_deg, seed0):
+    """``n`` stacked tenant states: each with ``preload_deg`` random
+    out-edges per vertex (tenant i seeded ``seed0 + i``, one lane-batched
+    insert for all) and one lane-batched static recompute; or every
+    vertex a live singleton when ``preload_deg`` is 0.  Returns (stacked
+    state, tenant 0's src, dst)."""
+    import numpy as np
+
+    from repro_torch.core import dynamic, edge_table as et
+    from repro_torch.core import graph_state as gs
+
+    nv = cfg.n_vertices
+    if not preload_deg:
+        return gs.stack([gs.all_singletons(cfg, dev)] * n), None, None
+    src = np.repeat(np.arange(nv, dtype=np.int32), preload_deg)
+    dst = np.stack([np.random.default_rng(seed0 + i).integers(
+        0, nv, src.shape[0]).astype(np.int32) for i in range(n)])
+    tsrc = torch.from_numpy(np.broadcast_to(src, dst.shape).copy()).to(dev)
+    tdst = torch.from_numpy(dst).to(dev)
+    empty = gs.stack([gs.empty(cfg, dev)] * n)
+    edges, _, failed = et.insert(empty.edges, tsrc, tdst, cfg.max_probes)
+    state = empty._replace(
+        v_alive=torch.ones((n, nv), dtype=torch.bool, device=dev),
+        edges=edges, overflow=failed.sum(1).int())
+    return dynamic.recompute(state, cfg), src, dst[0]
+
+
+def lane_kernel_rows(torch, dev, boot, ops, cfg, reps=10) -> dict:
+    """The two tenant-row kernels alone at the tenant path's class-A shape
+    (T tenants x C slots, NV vertices): frontier_min's boolean round
+    (seeds 1% of each lane's vertices) and hash_probe's insert of the
+    first wave's AddEdge lanes (T x chunk) into the booted tables.  Each
+    held exactly to its plain version on the card; device ms from a
+    replayed CUDA graph, host ms back to back, plain ms, and the byte
+    bound (gather: 9 B per edge slot + 8 B per vertex; insert: 11 B per
+    lane + 9 per slot walked + want + 9 per placed lane)."""
+    import numpy as np
+
+    from repro_torch.core import edge_table as et
+    from repro_torch.core import reach
+    from repro_torch.kernels.frontier_expand import ops as fops
+    from repro_torch.kernels.frontier_expand import ref as fref
+    from repro_torch.kernels.hash_probe import ops as hops
+    from repro_torch.kernels.hash_probe import ref as href
+
+    t_n, cap = boot.edges.src.shape
+    nv = cfg.n_vertices
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    src, dst = boot.edges.src, boot.edges.dst
+    live = boot.edges.state == et.LIVE
+    seeds = torch.rand((t_n, nv), generator=g, device=dev) < 0.01
+    val = reach._reached_val(seeds & boot.v_alive)
+
+    def gather(fn=fops.frontier_gather):
+        return fn(src, dst, live, val.unsqueeze(1), nv)
+
+    got = gather()
+    want = gather(lambda *a: fref.frontier_gather_lanes(*a, "min"))
+    check(torch.equal(got, want), "lane gather differs from its plain "
+                                  "version")
+    b_ms, b_by = bound_ms(9 * t_n * cap + 8 * t_n * nv)
+    rows = {"frontier_min": checked_row(dict(
+        shape=f"boolean round, T={t_n} rows of C={cap} slots, NV={nv}",
+        max_abs_err=max_abs_err(torch, got, want),
+        ms=graph_ms(torch, gather, reps), host_ms=cuda_ms(torch, gather,
+                                                          reps),
+        plain_ms=cuda_ms(torch, lambda: gather(
+            lambda *a: fref.frontier_gather_lanes(*a, "min")), 3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by))}
+
+    kind = torch.from_numpy(np.stack([o[0][0] for o in ops])).to(dev)
+    u = torch.from_numpy(np.stack([o[0][1] for o in ops])).to(dev)
+    v = torch.from_numpy(np.stack([o[0][2] for o in ops])).to(dev)
+    raw = kind == 0  # AddEdge lanes
+    en = raw & ~et._dedupe(u, v, raw)
+    bufs = [c.clone() for c in boot.edges]
+
+    def copy():
+        for b_, c in zip(bufs, boot.edges):
+            b_.copy_(c)
+
+    def launch(fn=hops.insert):
+        return fn(*bufs, u, v, en, max_probes=cfg.max_probes)
+
+    copy()
+    want = list(launch(href.insert)) + [c.clone() for c in bufs]
+    copy()
+    out = launch()
+    pairs = list(zip(list(out) + bufs, want))
+    check(all(torch.equal(a, b_) for a, b_ in pairs),
+          "lane insert differs from its plain version")
+    err = max(max_abs_err(torch, a, b_) for a, b_ in pairs)
+    visited = probe_visits(torch, boot.edges, et._hash(u, v, cap), u, v,
+                           cfg.max_probes, en)
+    placed, failed = int(out[0].sum()), int(out[1].sum())
+    k_bytes = 11 * u.numel() + 9 * visited + placed + failed + 9 * placed
+    kb_ms, kb_by = bound_ms(k_bytes)
+    copy_ms = graph_ms(torch, copy, reps)
+    copy_host_ms = cuda_ms(torch, copy, reps)
+    rows["hash_probe"] = checked_row(dict(
+        shape=f"insert kernel alone, T={t_n} rows of C={cap} slots x "
+              f"{u.shape[1]} lanes, {int(out[2])} rounds, {visited} slots "
+              f"walked", rounds=int(out[2]), placed=placed, failed=failed,
+        max_abs_err=err,
+        ms=graph_ms(torch, lambda: (copy(), launch()), reps) - copy_ms,
+        host_ms=cuda_ms(torch, lambda: (copy(), launch()), reps)
+        - copy_host_ms,
+        plain_ms=cuda_ms(torch, lambda: (copy(), launch(href.insert)), 2)
+        - cuda_ms(torch, copy, 2),
+        library_ms=None, bound_ms=kb_ms, bound_by=kb_by,
+        bound_bytes=k_bytes))
+    return rows
+
+
+def tenant_path(torch, dev, *, nv=4096, cap_a=2 ** 14, n_a=256,
+                cap_b=2 ** 13, n_b=64, cap_s=1024, chunk=1024, waves=8,
+                t_small=8, small_nv=256, sample=4) -> dict:
+    """Multi-tenant SMSCC serving on the card (phase 10).
+
+    A ``TenantEngine(buckets=(chunk,), tenant_batches=(1, 8, 64, 256))``
+    holds class A (``n_a`` tenants, ``smscc.config(nv, cap_a)``, each
+    preloaded with out-degree-2 random edges: a giant SCC, the full tier),
+    class B (``n_b`` tenants at ``cap_b``, every vertex a live singleton
+    and no edge: the compact tier carries its steps) and one tenant booted
+    at ``cap_s`` slots, which overflows, replays solo and migrates to a
+    grown class.  ``waves`` waves of one ``chunk``-op chunk per tenant of
+    the paper's mix (add_frac 0.7) go through ``apply_chunks``; the launch
+    counts are set to 0 just before and read just after.  Checks: every
+    tenant's acks, generations, config and final state equal a port
+    ``SCCService`` of its own fed the same chunks on the card (that run's
+    wall time gives the sequential ops/s); maintained labels equal a
+    static recompute for ``sample`` tenants; the compact tier and a solo
+    replay ran.  Then: host syncs per wave of class A at T = ``n_a``
+    against a ``t_small``-tenant engine on the same traffic; 8 tenants
+    at ``small_nv`` vertices on the card equal the same on the CPU;
+    ``serve_tenants`` at the reference's defaults, plain and durable
+    (the card-written stores open equal on the CPU); one
+    ``run_chaos_soak`` seed at its smoke size."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.ckpt.durable import DurableService
+    from repro_torch.configs import smscc
+    from repro_torch.core import dynamic
+    from repro_torch.core import graph_state as gs
+    from repro_torch.core.service import SCCService
+    from repro_torch.core.sync import SYNCS
+    from repro_torch.launch import chaos, serve
+    from repro_torch.launch.replica import states_equal
+    from repro_torch.tenancy import TenantEngine
+
+    cuda = dev.type == "cuda"
+    cfgs = {"a": smscc.config(n_vertices=nv, edge_capacity=cap_a),
+            "b": smscc.config(n_vertices=nv, edge_capacity=cap_b),
+            "s": smscc.config(n_vertices=nv, edge_capacity=cap_s)}
+    counts = {"a": n_a, "b": n_b, "s": 1}
+    rep = {"n_vertices": nv, "tenants": {k: (counts[k], c.edge_capacity)
+                                         for k, c in cfgs.items()},
+           "chunk": chunk, "waves": waves}
+    t0 = time.perf_counter()
+    boot_a, src0, dst0 = boot_lanes(torch, dev, cfgs["a"], n_a, 2, SEED)
+    boots = {"a": boot_a,
+             "b": boot_lanes(torch, dev, cfgs["b"], n_b, 0, 0)[0],
+             "s": gs.stack([gs.all_singletons(cfgs["s"], dev)])}
+    sync(torch, dev)
+    rep["boot_s"] = time.perf_counter() - t0
+    # the lane-batched boot == tenant 0 booted alone
+    solo0 = dynamic.recompute(gs.from_arrays(cfgs["a"], src0, dst0,
+                                             device=dev), cfgs["a"])
+    check(states_equal(gs.lane(boot_a, 0), solo0),
+          "lane-batched boot differs from a solo boot")
+    tids = [f"{k}{i}" for k in ("a", "b", "s") for i in range(counts[k])]
+    ops = {tid: tenant_ops(nv, chunk, waves, SEED + 1000 + j)
+           for j, tid in enumerate(tids)}
+    rep["kernels"] = lane_kernel_rows(
+        torch, dev, boot_a, [ops[f"a{i}"] for i in range(n_a)], cfgs["a"])
+
+    def engine(names):
+        eng = TenantEngine(buckets=(chunk,), tenant_batches=(1, 8, 64, 256),
+                           device=dev)
+        for tid in names:
+            eng.create_tenant(tid, cfgs[tid[0]],
+                              state=gs.lane(boots[tid[0]], int(tid[1:])),
+                              gen=1 if tid[0] == "a" else 0)
+        return eng
+
+    def run_waves(eng, names):
+        acks, walls, syncs = [], [], []
+        for w in range(waves):
+            s0, t0 = SYNCS.count, time.perf_counter()
+            res = eng.apply_chunks([(tid, *ops[tid][w]) for tid in names])
+            sync(torch, dev)
+            walls.append(time.perf_counter() - t0)
+            syncs.append(SYNCS.count - s0)
+            acks.append(res)
+        return acks, walls, syncs
+
+    eng = engine(tids)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    acks, walls, syncs = run_waves(eng, tids)
+    rep["launches"] = kernels.launch_counts()
+    rep["lane_launches"] = kernels.lane_launch_counts()
+    if cuda:
+        rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    st = eng.stats()
+    n_ops = len(tids) * waves * chunk
+    rep.update(
+        update_s=sum(walls), ops=n_ops, ops_per_s=n_ops / sum(walls),
+        wave_s=walls, host_syncs_per_wave=syncs,
+        host_syncs_by_capacity=st["host_syncs_by_capacity"],
+        lane_steps=st["lane_steps"],
+        repair_lane_steps=st["repair_lane_steps"],
+        dispatches=st["dispatches"], solo_replays=st["solo_replays"],
+        compile_count=st["compile_count"],
+        compile_bound=st["compile_bound"],
+        occupancy=st["occupancy"],
+        small_tenant=eng.tenant_telemetry("s0"))
+    check(st["repair_lane_steps"]["compact"] > 0, "the compact tier never "
+                                                  "ran")
+    check(st["solo_replays"] > 0, "no solo replay ran")
+    check(eng.tenant_cfg("s0").edge_capacity > cap_s,
+          "the undersized tenant did not grow")
+    check(st["compile_count"] <= st["compile_bound"], "registry bound")
+
+    # the oracle: one port SCCService per tenant, the same chunks
+    t0 = time.perf_counter()
+    for tid in tids:
+        svc = SCCService(cfgs[tid[0]], buckets=(chunk,),
+                         state=gs.lane(boots[tid[0]], int(tid[1:])))
+        for w in range(waves):
+            ok, gen = svc._apply_ops(*ops[tid][w])
+            got_ok, got_gen = acks[w][tid]
+            check(np.array_equal(got_ok, ok) and got_gen == gen,
+                  f"{tid} wave {w}: acks or gen differ from its oracle")
+        check(svc.cfg == eng.tenant_cfg(tid), f"{tid}: config differs")
+        check(states_equal(eng.tenant_state(tid), svc.state),
+              f"{tid}: state differs from its single-tenant oracle")
+    sync(torch, dev)
+    rep["sequential_s"] = time.perf_counter() - t0
+    rep["sequential_ops_per_s"] = n_ops / rep["sequential_s"]
+    rep["engine_vs_sequential"] = rep["ops_per_s"] / \
+        rep["sequential_ops_per_s"]
+    for tid in ("a0", f"a{n_a - 1}", "b0", "s0")[:sample]:
+        state, cfg = eng.tenant_state(tid), eng.tenant_cfg(tid)
+        check(torch.equal(dynamic.recompute(state, cfg).ccid, state.ccid),
+              f"{tid}: maintained labels differ from a static recompute")
+    del eng
+
+    # host syncs against T: class A alone at t_small tenants
+    small = [f"a{i}" for i in range(t_small)]
+    _, _, syncs_small = run_waves(engine(small), small)
+    per_wave_big = st["host_syncs_by_capacity"][cap_a] / waves
+    per_wave_small = sum(syncs_small) / waves
+    rep["class_a_syncs_per_wave"] = {n_a: per_wave_big,
+                                     t_small: per_wave_small}
+    check(per_wave_big <= 2 * per_wave_small,
+          f"host syncs per wave grew with T: {per_wave_big} at T={n_a} vs "
+          f"{per_wave_small} at T={t_small}")
+
+    # card against CPU: 8 tenants at small_nv vertices
+    scfg = smscc.config(n_vertices=small_nv, edge_capacity=4 * small_nv)
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        e2 = TenantEngine(buckets=(64,), tenant_batches=(1, 8), device=d)
+        for i in range(8):
+            e2.create_tenant(f"c{i}", scfg,
+                             state=gs.all_singletons(scfg, d))
+        out = []
+        for w in range(6):
+            res = e2.apply_chunks([
+                (f"c{i}", *tenant_ops(small_nv, 64, w + 1, 7 + i)[w])
+                for i in range(8)])
+            out.append([(res[f"c{i}"][0].tolist(), res[f"c{i}"][1])
+                        for i in range(8)])
+        runs.append((out, [e2.tenant_state(f"c{i}") for i in range(8)]))
+    check(runs[0][0] == runs[1][0] and all(
+        states_equal(a, b) for a, b in zip(runs[0][1], runs[1][1])),
+        "tenant engine on the card differs from the CPU")
+    rep["card_vs_cpu_tenants"] = 8
+
+    # the serve paths (the reference's defaults) and a chaos soak
+    t0 = time.perf_counter()
+    agg = serve.serve_tenants(32, 4, device=dev.type)
+    rep["serve"] = {"wall_s": agg["wall_s"], "ops": agg["ops"],
+                    "waves": agg["queue"]["waves"],
+                    "solo_replays": agg["engine"]["solo_replays"]}
+    with tempfile.TemporaryDirectory(prefix="scc-tenants-") as tmp:
+        agg = serve.serve_tenants(32, 4, directory=tmp, device=dev.type)
+        for tid, (state, gen) in agg["final"].items():
+            d = DurableService.open(os.path.join(tmp, "tenants", tid),
+                                    snapshot_every=0, device="cpu")
+            check(d.gen == gen and states_equal(d.state, state),
+                  f"{tid}: the card-written store opens differently on "
+                  f"the CPU")
+            d.close()
+        rep["serve_durable"] = {"wall_s": agg["wall_s"], "ops": agg["ops"],
+                                "stores_opened_on_cpu": len(agg["final"])}
+    with tempfile.TemporaryDirectory(prefix="scc-chaos-") as tmp:
+        soak = chaos.run_chaos_soak(tmp, seed=0, profile="mixed",
+                                    n_chunks=28, nv=160, device=dev)
+    check(soak["violations"] == [], f"chaos soak: {soak['violations']}")
+    rep["chaos"] = {k: soak[k] for k in (
+        "acked", "gen", "fs_triggered", "kills_fired", "degraded",
+        "recovered", "client_retries", "restarts")}
+    rep["chaos"]["failed"] = len(soak["failed"])
+    rep["serve_and_chaos_s"] = time.perf_counter() - t0
+    return rep
+
+
 def sass_counts(build, name, ops) -> dict:
     """Lines of ``cuobjdump -sass`` of a built kernel library that hold
     each opcode."""
@@ -1600,6 +1952,15 @@ def main() -> int:
               f"concurrent readers' path: {k} never launched")
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    ten = tenant_path(torch, dev)
+    ten["seconds"] = time.perf_counter() - t0
+    emit("tenant_path", **ten)
+    for k in ("frontier_min", "hash_probe"):
+        check(ten["lane_launches"][k] > 0,
+              f"tenant path: {k}'s tenant-row form never launched")
+    torch.cuda.empty_cache()
+
     bag_rep = bag_path(torch, dev)
     emit("embedding_bag_path", **bag_rep)
     check(bag_rep["launches"]["embedding_bag"] == bag_rep["calls"],
@@ -1631,7 +1992,10 @@ def main() -> int:
              library_ms=kern[name]["library_ms"],
              shape=kern[name]["shape"],
              **({"launches_by_entry": main_rep["hash_probe_launches"]}
-                if name == "hash_probe" else {}))
+                if name == "hash_probe" else {}),
+             **({"lanes": dict(ten["kernels"][name],
+                               launches=ten["lane_launches"][name])}
+                if name in ten["kernels"] else {}))
         for name in KERNELS]}), flush=True)
     emit("total", seconds=time.perf_counter() - t_all)
     print(card, flush=True)

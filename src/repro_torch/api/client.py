@@ -1,6 +1,5 @@
 """`GraphClient`: the request/response surface of the port (a port of
-``repro.api.client`` without the writer-failover reroute, which belongs
-with high availability).
+``repro.api.client``).
 
 The paper's SMSCC is a *linearizable concurrent graph object*: one
 abstract object against which a pool of threads issues updates and
@@ -160,7 +159,8 @@ class GraphClient:
                  consistency=Consistency.LATEST, *,
                  deadline_s: float | None = None, max_retries: int = 8,
                  backoff_base_s: float = 0.005,
-                 backoff_cap_s: float = 0.25, rng=None):
+                 backoff_cap_s: float = 0.25, rng=None,
+                 leader_resolver=None):
         from repro_torch.core.broker import QueryBroker
         self._svc = service
         self._broker = QueryBroker(service) if broker is None else broker
@@ -189,9 +189,14 @@ class GraphClient:
         self._backoff_base_s = float(backoff_base_s)
         self._backoff_cap_s = float(backoff_cap_s)
         self._rng = random.Random() if rng is None else rng
+        # writer-failover reroute: on NotLeader the client swaps its
+        # update target for whatever the resolver currently names (e.g.
+        # ``lambda: rset.leader or old_writer``) before the next retry
+        self._leader_resolver = leader_resolver
         self.session_id = f"gc{next(_SESSION_IDS)}"
         self._seq = 0
         self.retries = 0
+        self.reroutes = 0
         self.deadline_failures = 0
         self.updates_submitted = 0
         self.queries_submitted = 0
@@ -315,6 +320,21 @@ class GraphClient:
             return int(c.gen)
         raise TypeError(f"unknown consistency level: {c!r}")
 
+    def _reroute(self, e: fault_errors.FaultError):
+        """Swap the update target after a ``NotLeader``: whatever the
+        resolver names right now becomes ``self._svc`` (the update
+        attempt closures read it at call time, so the very next retry
+        lands on the new leader)."""
+        if self._leader_resolver is None:
+            return
+        try:
+            new = self._leader_resolver()
+        except Exception:
+            return  # resolver hiccup: retry against the old target
+        if new is not None and new is not self._svc:
+            self._svc = new
+            self.reroutes += 1
+
     def _with_retry(self, attempt, deadline_s: float | None):
         """Run ``attempt(remaining_s)`` under the retry policy: retryable
         :class:`~repro_torch.fault.errors.FaultError`\\ s are re-attempted with
@@ -322,7 +342,9 @@ class GraphClient:
         uniformly from ``[base, 3*prev_wait]``, floored by the server's
         ``retry_after`` hint and capped at ``backoff_cap_s`` -- until
         ``max_retries`` attempts or the deadline is spent, whichever
-        first.  Deadline exhaustion raises
+        first.  A :class:`~repro_torch.fault.errors.NotLeader`
+        additionally reroutes the session to ``leader_resolver()`` before
+        the next attempt.  Deadline exhaustion raises
         :class:`~repro_torch.fault.errors.DeadlineExceeded` (chaining the last
         transient error); retry exhaustion re-raises the last typed
         error itself."""
@@ -344,6 +366,8 @@ class GraphClient:
                 if not e.retryable or n == self._max_retries:
                     raise
                 last = e
+                if isinstance(e, fault_errors.NotLeader):
+                    self._reroute(e)
                 # decorrelated jitter (AWS-style): spread concurrent
                 # sessions' retries apart instead of marching them in
                 # lockstep into the server that just came back
@@ -418,6 +442,7 @@ class GraphClient:
         s.update(client_updates=self.updates_submitted,
                  client_queries=self.queries_submitted,
                  client_retries=self.retries,
+                 client_reroutes=self.reroutes,
                  client_deadline_failures=self.deadline_failures,
                  ryw_token=self._token)
         return s

@@ -8,22 +8,25 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import graph_state as gs
+from repro_torch.core.reach import take as _at
 
 
 def check_scc(state: gs.GraphState, u, v):
-    """bool[Q]: u and v alive and in the same SCC."""
-    nv = state.ccid.shape[0]
+    """bool[Q]: u and v alive and in the same SCC.  Stacked lanes take
+    [T, Q] ids and answer bool[T, Q], each row against its own lane."""
+    nv = state.ccid.shape[-1]
     u = u.clamp(0, nv - 1)
     v = v.clamp(0, nv - 1)
-    alive = state.v_alive[u] & state.v_alive[v]
-    return alive & (state.ccid[u] == state.ccid[v])
+    alive = _at(state.v_alive, u) & _at(state.v_alive, v)
+    return alive & (_at(state.ccid, u) == _at(state.ccid, v))
 
 
 def belongs_to_community(state: gs.GraphState, u):
-    """int32[Q]: the community (SCC) id of u; ``n_vertices`` if absent."""
-    nv = state.ccid.shape[0]
+    """int32[Q]: the community (SCC) id of u; ``n_vertices`` if absent
+    (int32[T, Q] over stacked lanes)."""
+    nv = state.ccid.shape[-1]
     uu = u.clamp(0, nv - 1)
-    return torch.where(state.v_alive[uu], state.ccid[uu], nv)
+    return torch.where(_at(state.v_alive, uu), _at(state.ccid, uu), nv)
 
 
 def community_sizes(state: gs.GraphState):

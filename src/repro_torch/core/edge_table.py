@@ -11,6 +11,13 @@ On the card the hash, the walk and the claim rounds of ``insert`` and
 batch's dedupe stays here.  The hash's torch form
 (``kernels/hash_probe/ref.hash_slots``) computes the uint32 mix in int64
 masked to 32 bits; torch has no uint32 multiply or logical shift.
+
+Tenant lanes: a table with [T, C] columns is T tenants' tables in one
+allocation, each row exactly its solo layout.  ``lookup``, ``insert``,
+``remove``, ``remove_incident`` and ``fill_stats`` take it with [T, B]
+keys (and [T, NV] vertex masks): row t's keys act on row t only, in one
+kernel launch for all rows, and an insert's duplicates are found per
+(row, u, v).
 """
 from __future__ import annotations
 
@@ -46,7 +53,7 @@ def lookup(table: EdgeTable, u, v, max_probes: int, *, impl: str = "auto"
     """Batched membership probe: ``(found: bool[B], slot: int32[B])``;
     ``slot`` is the LIVE slot when found, else the first EMPTY/TOMB slot
     seen, else -1 when the probe bound was exhausted."""
-    base = _hash(u, v, table.src.shape[0])
+    base = _hash(u, v, table.src.shape[-1])
     return hash_probe.probe(table.src, table.dst, table.state, base, u, v,
                             max_probes=max_probes, impl=impl)
 
@@ -56,16 +63,27 @@ def _dedupe(u, v, enable):
     stable sort by (u, v), enabled lanes first within each key, puts a
     key's first enabled lane at the start of its run, so every enabled
     lane past a run's start is a duplicate.  (No scan and no scatter: a
-    cummax or a scatter-min over run ids is slow on the card.)"""
+    cummax or a scatter-min over run ids is slow on the card.)  [T, B]
+    lanes are keyed on (row, u, v): duplicates only within a row."""
+    shape = u.shape
+    keys = (u, v)
+    if u.dim() == 2:
+        row = torch.arange(shape[0], dtype=torch.int32, device=u.device)
+        keys = (row[:, None].expand(shape).reshape(-1), u.reshape(-1),
+                v.reshape(-1))
+        enable = enable.reshape(-1)
     order = torch.argsort((~enable).to(torch.uint8), stable=True)
-    order = order[torch.argsort(v[order], stable=True)]
-    order = order[torch.argsort(u[order], stable=True)]
-    su, sv, se = u[order], v[order], enable[order]
+    for key in reversed(keys):
+        order = order[torch.argsort(key[order], stable=True)]
+    sorted_keys = [key[order] for key in keys]
+    se = enable[order]
     start = torch.ones_like(se)
-    start[1:] = (su[1:] != su[:-1]) | (sv[1:] != sv[:-1])
+    start[1:] = sorted_keys[0][1:] != sorted_keys[0][:-1]
+    for sk in sorted_keys[1:]:
+        start[1:] |= sk[1:] != sk[:-1]
     dup = torch.empty_like(se)
     dup[order] = se & ~start
-    return dup
+    return dup.reshape(shape)
 
 
 def insert(table: EdgeTable, u, v, max_probes: int, enable=None, *,
@@ -78,9 +96,8 @@ def insert(table: EdgeTable, u, v, max_probes: int, enable=None, *,
     slot but exhausted the probe bound.  The hash, the lookup and every
     claim round run in ``hash_probe.insert`` (on the card: one launch, no
     host read), writing into clones of the columns."""
-    b = u.shape[0]
     if enable is None:
-        enable = torch.ones(b, dtype=torch.bool, device=u.device)
+        enable = torch.ones(u.shape, dtype=torch.bool, device=u.device)
     enable = enable & ~_dedupe(u, v, enable)
     src, dst, state = (table.src.clone(), table.dst.clone(),
                        table.state.clone())
@@ -96,7 +113,7 @@ def remove(table: EdgeTable, u, v, max_probes: int, enable=None, *,
     succeeds.  The hash, the walk, the claim and the TOMB write run in
     ``hash_probe.remove``, writing into a clone of ``state``."""
     if enable is None:
-        enable = torch.ones(u.shape[0], dtype=torch.bool, device=u.device)
+        enable = torch.ones(u.shape, dtype=torch.bool, device=u.device)
     state = table.state.clone()
     removed = hash_probe.remove(table.src, table.dst, state, u, v, enable,
                                 max_probes=max_probes, impl=impl)
@@ -107,7 +124,11 @@ def remove_incident(table: EdgeTable, v_mask: torch.Tensor
                     ) -> Tuple[EdgeTable, torch.Tensor]:
     """Tombstone every LIVE edge with an endpoint in ``v_mask``."""
     live = table.state == LIVE
-    kill = live & (v_mask[table.src] | v_mask[table.dst])
+    if v_mask.dim() == 2:  # tenant lanes: each row's own mask
+        kill = live & (v_mask.gather(1, table.src.long())
+                       | v_mask.gather(1, table.dst.long()))
+    else:
+        kill = live & (v_mask[table.src] | v_mask[table.dst])
     state = torch.where(kill, TOMB, table.state).to(torch.int8)
     return table._replace(state=state), kill
 
@@ -132,6 +153,7 @@ def compact(table: EdgeTable, max_probes: int, *, impl: str = "auto"
 
 
 def fill_stats(table: EdgeTable):
-    """(live, tomb) slot counts as int32 scalars on the table's device."""
-    return ((table.state == LIVE).sum().int(),
-            (table.state == TOMB).sum().int())
+    """(live, tomb) slot counts as int32 scalars on the table's device
+    (int32[T] for a [T, C] table)."""
+    return ((table.state == LIVE).sum(-1).int(),
+            (table.state == TOMB).sum(-1).int())

@@ -155,8 +155,52 @@ def live_vertex_count(state: GraphState) -> torch.Tensor:
 
 
 def recount_ccs(state: GraphState) -> GraphState:
-    """n_ccs = #representatives (v alive with ccid[v] == v)."""
-    nv = state.ccid.shape[0]
+    """n_ccs = #representatives (v alive with ccid[v] == v); per lane for
+    stacked lanes."""
+    nv = state.ccid.shape[-1]
     vid = torch.arange(nv, dtype=torch.int32, device=state.ccid.device)
     reps = state.v_alive & (state.ccid == vid)
-    return state._replace(n_ccs=reps.sum().int())
+    return state._replace(n_ccs=reps.sum(-1).int())
+
+
+# ---------------------------------------------------------------------------
+# Stacked tenant lanes: every leaf gains a leading [T] axis (v_alive and
+# ccid [T, NV], the edge columns [T, C], n_ccs / gen / overflow [T]).  The
+# JAX package stacks pytrees for jax.vmap; these are its _stack / _lane /
+# _set_lane and the whole-batch gather and scatter of its tenancy engine.
+# ---------------------------------------------------------------------------
+
+def _map(fn, *trees):
+    first = trees[0]
+    if isinstance(first, tuple):  # GraphState / EdgeTable
+        return type(first)(*(_map(fn, *leaves) for leaves in zip(*trees)))
+    return fn(*trees)
+
+
+def stack(states) -> GraphState:
+    """Stack same-config states along a new leading lane axis."""
+    return _map(lambda *xs: torch.stack(xs), *states)
+
+
+def lane(states: GraphState, i: int) -> GraphState:
+    """Lane ``i`` of stacked lanes, as a state of its own (a copy)."""
+    return _map(lambda a: a[i].clone(), states)
+
+
+def take_lanes(states: GraphState, idx) -> GraphState:
+    """Lanes ``idx`` (a list or an index tensor) of stacked lanes, in that
+    order."""
+    idx = torch.as_tensor(idx, dtype=torch.long).to(states.device)
+    return _map(lambda a: a.index_select(0, idx), states)
+
+
+def set_lanes(states: GraphState, idx, sub: GraphState) -> GraphState:
+    """New stacked lanes with lanes ``idx`` replaced by the lanes of
+    ``sub`` (functional: ``states`` is not written)."""
+    idx = torch.as_tensor(idx, dtype=torch.long).to(states.device)
+    return _map(lambda a, x: a.index_copy(0, idx, x), states, sub)
+
+
+def concat_lanes(states: GraphState, more: GraphState) -> GraphState:
+    """Stacked lanes followed by the lanes of ``more``."""
+    return _map(lambda a, x: torch.cat([a, x]), states, more)

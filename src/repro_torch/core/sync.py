@@ -35,5 +35,10 @@ class SyncCounter:
         self._tick()
         return torch.stack([t.reshape(()).long() for t in ts]).tolist()
 
+    def numpy(self, t: torch.Tensor):
+        """One transfer of a whole tensor to the host (numpy)."""
+        self._tick()
+        return t.cpu().numpy()
+
 
 SYNCS = SyncCounter()

@@ -47,6 +47,13 @@
 // one 32-byte sector each, and the read waits before its atomic can issue.
 // The direct form keeps the port's first design: one thread per edge, F
 // serial 64-bit atomicMins.
+//
+// Tenant rows (the gather form).  src, dst and live are [T, E] and hold
+// row-local vertex ids, val is [T, F, n_src] and out [T, F, nv]: edge e of
+// row t reads val[t, f, src[t, e]] and writes out[t, f, dst[t, e]].  The
+// kernel adds the row offsets itself, one division per edge, so values
+// never cross rows and nobody builds offset copies of the edges.  T = 1 is
+// the single-graph call.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,16 +90,19 @@ __global__ void __launch_bounds__(kThreads)
     gather_rows(const int* __restrict__ src, const int* __restrict__ dst,
                 const uint8_t* __restrict__ live,
                 const unsigned* __restrict__ val, unsigned* out, long long e,
-                int f, int n_src, int nv) {
+                long long total, int f, int n_src, int nv) {
   const long long tile = (long long)kThreads * kUnroll;
-  for (long long base = blockIdx.x * tile + threadIdx.x; base < e;
+  for (long long base = blockIdx.x * tile + threadIdx.x; base < total;
        base += (long long)gridDim.x * tile) {
     int s[kUnroll], d[kUnroll];
     bool ok[kUnroll];
+    long long row[kUnroll];
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
       const long long i = base + (long long)k * kThreads;
-      const bool in = i < e;
+      const bool in = i < total;
+      // one row (T = 1) skips the 64-bit division
+      row[k] = in && total != e ? i / e : 0;
       s[k] = in ? src[i] : -1;
       d[k] = in ? dst[i] : -1;
       // unsigned compares drop -1 padding and junk slots in one test
@@ -110,9 +120,9 @@ __global__ void __launch_bounds__(kThreads)
         // pair mode (n_src == nv): row 1 runs along dst -> src
         const bool back = kMode == kPair && r == 1;
         const int from = back ? d[k] : s[k], to = back ? s[k] : d[k];
-        v[k] = ok[k] ? __ldg(val + (long long)r * n_src + from)
+        v[k] = ok[k] ? __ldg(val + (row[k] * f + r) * n_src + from)
                      : identity<kMode>();
-        o[k] = out + (long long)r * nv + to;
+        o[k] = out + (row[k] * f + r) * nv + to;
       }
 #pragma unroll
       for (int k = 0; k < kUnroll; ++k)
@@ -156,38 +166,39 @@ __global__ void scatter_min(const int* __restrict__ dst,
 
 }  // namespace
 
-// Gather form.  src, dst int32[E], live uint8[E] (0 or 1), val int32 words
-// [F, n_src] (pair mode: [2, nv] with n_src == nv; OR mode: packed bits),
-// out int32 words [F, nv].  Returns the first CUDA error of the fill and
-// the launch.
+// Gather form.  src, dst int32[T, E], live uint8[T, E] (0 or 1), val
+// int32 words [T, F, n_src] (pair mode: [T, 2, nv] with n_src == nv; OR
+// mode: packed bits), out int32 words [T, F, nv].  Returns the first CUDA
+// error of the fill and the launch.
 extern "C" int frontier_gather_launch(const void* src, const void* dst,
                                       const void* live, const void* val,
-                                      void* out, long long e, int f,
+                                      void* out, int t, long long e, int f,
                                       int n_src, int nv, int mode,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n_out = (long long)f * nv;
+  const long long n_out = (long long)t * f * nv;
+  const long long total = (long long)t * e;
   if (n_out == 0) return (int)cudaGetLastError();
   // SENTINEL is all ones, the OR identity all zeros
   cudaError_t rc = cudaMemsetAsync(out, mode == kOr ? 0 : 0xFF,
                                    n_out * sizeof(unsigned), s);
   if (rc != cudaSuccess) return (int)rc;
-  if (e > 0 && n_src > 0) {
-    const int blocks = blocks_for((e + kUnroll - 1) / kUnroll);
+  if (total > 0 && n_src > 0) {
+    const int blocks = blocks_for((total + kUnroll - 1) / kUnroll);
     auto* sp = static_cast<const int*>(src);
     auto* dp = static_cast<const int*>(dst);
     auto* lp = static_cast<const uint8_t*>(live);
     auto* vp = static_cast<const unsigned*>(val);
     auto* op = static_cast<unsigned*>(out);
     if (mode == kPair)
-      gather_rows<kPair><<<blocks, kThreads, 0, s>>>(sp, dp, lp, vp, op, e, f,
-                                                     n_src, nv);
+      gather_rows<kPair><<<blocks, kThreads, 0, s>>>(sp, dp, lp, vp, op, e,
+                                                     total, f, n_src, nv);
     else if (mode == kOr)
-      gather_rows<kOr><<<blocks, kThreads, 0, s>>>(sp, dp, lp, vp, op, e, f,
-                                                   n_src, nv);
+      gather_rows<kOr><<<blocks, kThreads, 0, s>>>(sp, dp, lp, vp, op, e,
+                                                   total, f, n_src, nv);
     else
-      gather_rows<kMin><<<blocks, kThreads, 0, s>>>(sp, dp, lp, vp, op, e, f,
-                                                    n_src, nv);
+      gather_rows<kMin><<<blocks, kThreads, 0, s>>>(sp, dp, lp, vp, op, e,
+                                                    total, f, n_src, nv);
   }
   return (int)cudaGetLastError();
 }

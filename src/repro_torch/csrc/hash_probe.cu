@@ -57,6 +57,15 @@
 // - Reads of words other blocks write within the launch (state in the
 //   rounds, claims, counts) go through L2 (__ldcg); byte stores of state
 //   from neighbouring winners do not disturb each other.
+//
+// Tenant rows.  Every entry takes T tables of C slots each, [T, C] in one
+// allocation, and T x B op lanes; lane i belongs to row i / B and probes
+// row * C + ((h + p) & (C - 1)), so each row keeps exactly its solo layout
+// and a key never meets another row's slots.  Slots the kernels return are
+// row-local.  The claim buffers are [2, T, C], indexed by the same row
+// offsets, so a claim never aliases across rows; the pending count and the
+// round loop are shared (a row with no pending lane changes nothing in a
+// round).  T = 1 is the single-table call.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -182,37 +191,40 @@ __global__ void __launch_bounds__(kThreads)
 probe_walk(const int* __restrict__ src, const int* __restrict__ dst,
            const uint8_t* __restrict__ state, const int* __restrict__ base,
            const int* __restrict__ u, const int* __restrict__ v,
-           uint8_t* __restrict__ found, int* __restrict__ slot, int b,
-           unsigned mask, int window, int vec) {
+           uint8_t* __restrict__ found, int* __restrict__ slot, int n,
+           int b, unsigned mask, int window, int vec) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= b) return;
-  const Walk w = walk(src, dst, state, mask, window, vec, (unsigned)base[i],
-                      u[i], v[i]);
+  if (i >= n) return;
+  const long long off = (long long)(i / b) * ((long long)mask + 1);
+  const Walk w = walk(src + off, dst + off, state + off, mask, window, vec,
+                      (unsigned)base[i], u[i], v[i]);
   found[i] = w.found;
   slot[i] = w.slot;
 }
 
 // counts: int32[max_probes + 2], zeroed.  counts[r] is the number of lanes
 // pending at the start of round r; counts[max_probes + 1] gets the number
-// of rounds run.
+// of rounds run.  n = T x B lanes, lane i in row i / b; total = T x C.
 __global__ void __launch_bounds__(kThreads)
 insert_rounds(int* src, int* dst, uint8_t* state, const int* u,
               const int* v, const uint8_t* enable, uint8_t* placed,
-              uint8_t* failed, int* claims, int* counts, int b,
-              unsigned mask, long long cap, int window, int max_probes,
-              int vec) {
+              uint8_t* failed, int* claims, int* counts, int n, int b,
+              unsigned mask, long long cap, long long total, int window,
+              int max_probes, int vec) {
   cg::grid_group grid = cg::this_grid();
   const int stride = gridDim.x * blockDim.x;
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
   int pending = 0;
-  for (int i = first; i < b; i += stride) {
+  for (int i = first; i < n; i += stride) {
     bool want = false;
     if (enable[i]) {
+      const long long off = (long long)(i / b) * cap;
       const unsigned start = slot_of(u[i], v[i], mask);
-      want = !walk(src, dst, state, mask, window, vec, start, u[i], v[i])
+      want = !walk(src + off, dst + off, state + off, mask, window, vec,
+                   start, u[i], v[i])
                   .found;
       if (want) {
-        claims[start] = kNoClaim;
+        claims[off + start] = kNoClaim;
         ++pending;
       }
     }
@@ -223,29 +235,31 @@ insert_rounds(int* src, int* dst, uint8_t* state, const int* u,
   grid.sync();
   int r = 0;
   for (; r < max_probes && __ldcg(&counts[r]) > 0; ++r) {
-    int* cur = claims + (r & 1) * cap;
-    int* next = claims + ((r + 1) & 1) * cap;
-    for (int i = first; i < b; i += stride) {
+    int* cur = claims + (r & 1) * total;
+    int* next = claims + ((r + 1) & 1) * total;
+    for (int i = first; i < n; i += stride) {
       if (!failed[i]) continue;
+      const long long off = (long long)(i / b) * cap;
       const unsigned pos = (slot_of(u[i], v[i], mask) + (unsigned)r) & mask;
-      if (__ldcg(state + pos) != kLive) atomicMin(cur + pos, i);
+      if (__ldcg(state + off + pos) != kLive) atomicMin(cur + off + pos, i);
     }
     grid.sync();
     pending = 0;
-    for (int i = first; i < b; i += stride) {
+    for (int i = first; i < n; i += stride) {
       if (!failed[i]) continue;
       const int ku = u[i], kv = v[i];
+      const long long off = (long long)(i / b) * cap;
       const unsigned pos = (slot_of(ku, kv, mask) + (unsigned)r) & mask;
       // only a lane that contended at pos this round can own its word
-      if (__ldcg(cur + pos) == i) {
-        src[pos] = ku;
-        dst[pos] = kv;
-        state[pos] = kLive;
+      if (__ldcg(cur + off + pos) == i) {
+        src[off + pos] = ku;
+        dst[off + pos] = kv;
+        state[off + pos] = kLive;
         placed[i] = 1;
         failed[i] = 0;
       } else {
         ++pending;
-        next[(pos + 1u) & mask] = kNoClaim;
+        next[off + ((pos + 1u) & mask)] = kNoClaim;
       }
     }
     warp_add(&counts[r + 1], pending);
@@ -254,36 +268,41 @@ insert_rounds(int* src, int* dst, uint8_t* state, const int* u,
   if (blockIdx.x == 0 && threadIdx.x == 0) counts[max_probes + 1] = r;
 }
 
-// slots: int32[B] scratch (each lane's hit slot or -1); claims: int32[C].
+// slots: int32[T x B] scratch (each lane's hit slot in its row, or -1);
+// claims: int32[T x C].
 __global__ void __launch_bounds__(kThreads)
 remove_first(const int* src, const int* dst, uint8_t* state, const int* u,
              const int* v, const uint8_t* enable, uint8_t* removed,
-             int* slots, int* claims, int b, unsigned mask, int window,
-             int vec) {
+             int* slots, int* claims, int n, int b, unsigned mask,
+             int window, int vec) {
   cg::grid_group grid = cg::this_grid();
   const int stride = gridDim.x * blockDim.x;
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
-  for (int i = first; i < b; i += stride) {
+  const long long cap = (long long)mask + 1;
+  for (int i = first; i < n; i += stride) {
     int s = -1;
     if (enable[i]) {
       const int ku = u[i], kv = v[i];
-      const Walk w = walk(src, dst, state, mask, window, vec,
-                          slot_of(ku, kv, mask), ku, kv);
+      const long long off = (long long)(i / b) * cap;
+      const Walk w = walk(src + off, dst + off, state + off, mask, window,
+                          vec, slot_of(ku, kv, mask), ku, kv);
       if (w.found) {
         s = w.slot;
-        claims[s] = kNoClaim;
+        claims[off + s] = kNoClaim;
       }
     }
     slots[i] = s;
   }
   grid.sync();
-  for (int i = first; i < b; i += stride)
-    if (slots[i] >= 0) atomicMin(claims + slots[i], i);
+  for (int i = first; i < n; i += stride)
+    if (slots[i] >= 0)
+      atomicMin(claims + (long long)(i / b) * cap + slots[i], i);
   grid.sync();
-  for (int i = first; i < b; i += stride) {
+  for (int i = first; i < n; i += stride) {
     const int s = slots[i];
-    const bool won = s >= 0 && __ldcg(claims + s) == i;
-    if (won) state[s] = kTomb;
+    const long long at = (long long)(i / b) * cap + s;
+    const bool won = s >= 0 && __ldcg(claims + at) == i;
+    if (won) state[at] = kTomb;
     removed[i] = won;
   }
 }
@@ -326,37 +345,40 @@ cudaError_t launched(cudaError_t err) {
 
 }  // namespace
 
-// src/dst int32[C], state int8[C], base/u/v int32[B] -> found uint8[B] (a
-// torch.bool buffer), slot int32[B].  C is a power of two.
+// src/dst int32[T, C], state int8[T, C], base/u/v int32[T, B] -> found
+// uint8[T, B] (a torch.bool buffer), slot int32[T, B] (row-local).  C is a
+// power of two.
 extern "C" int hash_probe_launch(const void* src, const void* dst,
                                  const void* state, const void* base,
                                  const void* u, const void* v, void* found,
-                                 void* slot, int b, long long cap,
+                                 void* slot, int t, int b, long long cap,
                                  int max_probes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b > 0)
-    probe_walk<<<(b + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+  const int n = t * b;
+  if (n > 0)
+    probe_walk<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
         static_cast<const int*>(src), static_cast<const int*>(dst),
         static_cast<const uint8_t*>(state), static_cast<const int*>(base),
         static_cast<const int*>(u), static_cast<const int*>(v),
-        static_cast<uint8_t*>(found), static_cast<int*>(slot), b,
+        static_cast<uint8_t*>(found), static_cast<int*>(slot), n, b,
         (unsigned)(cap - 1), window_of(cap, max_probes),
         chunked(src, dst, state, cap));
   return (int)cudaGetLastError();
 }
 
-// Writes into src/dst/state.  u/v int32[B], enable uint8[B]
-// (deduplicated), placed and failed uint8[B] out; claims int32[2 C] and
-// counts int32[max_probes + 2] (zeroed) scratch.
+// Writes into src/dst/state [T, C].  u/v int32[T, B], enable uint8[T, B]
+// (deduplicated within each row), placed and failed uint8[T, B] out;
+// claims int32[2 T C] and counts int32[max_probes + 2] (zeroed) scratch.
 extern "C" int hash_insert_launch(void* src, void* dst, void* state,
                                   const void* u, const void* v,
                                   const void* enable,
                                   void* placed, void* failed, void* claims,
-                                  void* counts, int b, long long cap,
+                                  void* counts, int t, int b, long long cap,
                                   int max_probes, void* stream) {
-  if (b <= 0) return (int)cudaGetLastError();
+  int n = t * b;
+  if (n <= 0) return (int)cudaGetLastError();
   int grid = 0;
-  cudaError_t err = coop_grid(insert_rounds, b, &grid);
+  cudaError_t err = coop_grid(insert_rounds, n, &grid);
   if (err != cudaSuccess) return (int)err;
   int* p_src = static_cast<int*>(src);
   int* p_dst = static_cast<int*>(dst);
@@ -369,28 +391,30 @@ extern "C" int hash_insert_launch(void* src, void* dst, void* state,
   int* p_claims = static_cast<int*>(claims);
   int* p_counts = static_cast<int*>(counts);
   unsigned mask = (unsigned)(cap - 1);
+  long long total = (long long)t * cap;
   int window = window_of(cap, max_probes);
   int vec = chunked(src, dst, state, cap);
-  void* args[] = {&p_src,    &p_dst,    &p_state,  &p_u,    &p_v,
+  void* args[] = {&p_src,    &p_dst,    &p_state,  &p_u,      &p_v,
                   &p_en,     &p_placed, &p_failed, &p_claims, &p_counts,
-                  &b,        &mask,     &cap,      &window,  &max_probes,
-                  &vec};
+                  &n,        &b,        &mask,     &cap,      &total,
+                  &window,   &max_probes, &vec};
   return (int)launched(cudaLaunchCooperativeKernel(
       (const void*)insert_rounds, dim3(grid), dim3(kThreads), args, 0,
       static_cast<cudaStream_t>(stream)));
 }
 
-// Writes TOMB into state.  removed uint8[B] out; slots int32[B] and claims
-// int32[C] scratch.
+// Writes TOMB into state [T, C].  removed uint8[T, B] out; slots
+// int32[T, B] and claims int32[T, C] scratch.
 extern "C" int hash_remove_launch(const void* src, const void* dst,
                                   void* state, const void* u, const void* v,
                                   const void* enable, void* removed,
-                                  void* slots, void* claims, int b,
+                                  void* slots, void* claims, int t, int b,
                                   long long cap, int max_probes,
                                   void* stream) {
-  if (b <= 0) return (int)cudaGetLastError();
+  int n = t * b;
+  if (n <= 0) return (int)cudaGetLastError();
   int grid = 0;
-  cudaError_t err = coop_grid(remove_first, b, &grid);
+  cudaError_t err = coop_grid(remove_first, n, &grid);
   if (err != cudaSuccess) return (int)err;
   const int* p_src = static_cast<const int*>(src);
   const int* p_dst = static_cast<const int*>(dst);
@@ -404,9 +428,9 @@ extern "C" int hash_remove_launch(const void* src, const void* dst,
   unsigned mask = (unsigned)(cap - 1);
   int window = window_of(cap, max_probes);
   int vec = chunked(src, dst, state, cap);
-  void* args[] = {&p_src,     &p_dst,   &p_state,  &p_u, &p_v,
-                  &p_en,      &p_removed, &p_slots, &p_claims, &b,
-                  &mask,      &window,  &vec};
+  void* args[] = {&p_src,     &p_dst,     &p_state, &p_u,      &p_v,
+                  &p_en,      &p_removed, &p_slots, &p_claims, &n,
+                  &b,         &mask,      &window,  &vec};
   return (int)launched(cudaLaunchCooperativeKernel(
       (const void*)remove_first, dim3(grid), dim3(kThreads), args, 0,
       static_cast<cudaStream_t>(stream)));

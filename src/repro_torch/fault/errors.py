@@ -14,7 +14,7 @@ table)::
     ├── Unavailable                   transient; retryable=True, carries
     │   │                             retry_after (seconds hint)
     │   └── QueueFull                 admission queue rejected the chunk
-    │       (repro.tenancy.queue)
+    │       (repro_torch.tenancy.queue)
     ├── NotLeader                     this node lost write leadership;
     │                                 retryable=True, carries a leader
     │                                 hint -- clients reroute + resubmit
@@ -64,8 +64,8 @@ class Unavailable(FaultError):
 
     Raised by the durable store while DEGRADED (WAL disk fault -- reads
     keep serving, writes bounce), by a ReplicaSet with no healthy
-    replica, and by admission control (:class:`~repro.tenancy.queue.
-    QueueFull`)."""
+    replica, and by admission control
+    (:class:`~repro_torch.tenancy.queue.QueueFull`)."""
 
     retryable = True
 

@@ -25,7 +25,17 @@ def launch_counts() -> dict:
             for name, fns in _wrappers().items()}
 
 
+def lane_launch_counts() -> dict:
+    """Kernel name -> CUDA launches of the tenant-row forms so far (the
+    kernels that have one)."""
+    return {name: sum(fn.lane_launches for fn in fns)
+            for name, fns in _wrappers().items()
+            if hasattr(fns[0], "lane_launches")}
+
+
 def reset_launch_counts() -> None:
     for fns in _wrappers().values():
         for fn in fns:
             fn.launches = 0
+            if hasattr(fn, "lane_launches"):
+                fn.lane_launches = 0

@@ -9,7 +9,9 @@ count on ``frontier_min.launches``:
   messages, uint32 values carried in int64);
 - :func:`frontier_gather` fuses the gather of each edge's message into the
   kernel and holds values in 32-bit words; every round of
-  ``core/reach.py`` runs through it.
+  ``core/reach.py`` runs through it.  Given [T, E] edges it is the
+  tenant-row form (one launch for T graphs); those launches also count on
+  ``frontier_min.lane_launches``.
 
 Unlike the TPU wrapper there is no size ceiling: the scatter reads each
 edge once whatever NV is.
@@ -39,8 +41,8 @@ def _lib():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.frontier_gather_launch.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.frontier_min_launch.restype = ctypes.c_int
     lib.frontier_gather_launch.restype = ctypes.c_int
     return lib
@@ -75,6 +77,7 @@ def frontier_min(dst: torch.Tensor, msg: torch.Tensor, nv: int, *,
 
 
 frontier_min.launches = 0
+frontier_min.lane_launches = 0
 
 
 def frontier_gather(src: torch.Tensor, dst: torch.Tensor, live: torch.Tensor,
@@ -96,10 +99,16 @@ def frontier_gather(src: torch.Tensor, dst: torch.Tensor, live: torch.Tensor,
       messages.
 
     Returns int32 words shaped like val with n_src replaced by nv.
+
+    Tenant rows: src, dst, live [T, E] holding row-local vertex ids, val
+    [T, n_src] or [T, F, n_src]; row t's edges read and write row t of val
+    and out only.
     """
     if mode not in ref.MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of "
                          f"{ref.MODES}")
+    if src.dim() == 2:
+        return _gather_lanes(src, dst, live, val, nv, mode, impl)
     squeeze = val.dim() == 1
     v2 = val.unsqueeze(0) if squeeze else val
     if mode == "pair" and (v2.shape[0] != 2 or v2.shape[1] != nv):
@@ -122,7 +131,39 @@ def frontier_gather(src: torch.Tensor, dst: torch.Tensor, live: torch.Tensor,
         out = torch.empty((f, nv), dtype=torch.int32, device=dev)
         _build.check(_lib().frontier_gather_launch(
             src.data_ptr(), dst.data_ptr(), live.data_ptr(), v2.data_ptr(),
-            out.data_ptr(), e, f, n_src, nv, ref.MODES.index(mode),
+            out.data_ptr(), 1, e, f, n_src, nv, ref.MODES.index(mode),
             _build.stream_ptr(out)), "frontier_min")
         frontier_min.launches += 1
     return out[0] if squeeze else out
+
+
+def _gather_lanes(src, dst, live, val, nv, mode, impl):
+    squeeze = val.dim() == 2
+    v3 = val.unsqueeze(1) if squeeze else val
+    t, e = src.shape
+    if v3.dim() != 3 or v3.shape[0] != t:
+        raise ValueError(f"{t} rows of edges take val [{t}, (F,) n_src], "
+                         f"got {tuple(val.shape)}")
+    if mode == "pair" and (v3.shape[1] != 2 or v3.shape[2] != nv):
+        raise ValueError(f"pair mode takes val [T, 2, {nv}], got "
+                         f"{tuple(val.shape)}")
+    if val.device.type == "cpu":
+        out = ref.frontier_gather_lanes(src, dst, live, v3, nv, mode)
+    else:
+        _build.require_kernel_impl(impl, "frontier_min")
+        dev = val.device
+        _build.require(src, "src", torch.int32, 2, dev)
+        _build.require(dst, "dst", torch.int32, 2, dev)
+        _build.require(live, "live", torch.bool, 2, dev)
+        _build.require(v3, "val", torch.int32, 3, dev)
+        if dst.shape != src.shape or live.shape != src.shape:
+            raise ValueError("src, dst and live must share one [T, E] shape")
+        f, n_src = v3.shape[1], v3.shape[2]
+        out = torch.empty((t, f, nv), dtype=torch.int32, device=dev)
+        _build.check(_lib().frontier_gather_launch(
+            src.data_ptr(), dst.data_ptr(), live.data_ptr(), v3.data_ptr(),
+            out.data_ptr(), t, e, f, n_src, nv, ref.MODES.index(mode),
+            _build.stream_ptr(out)), "frontier_min")
+        frontier_min.launches += 1
+        frontier_min.lane_launches += 1
+    return out[:, 0] if squeeze else out

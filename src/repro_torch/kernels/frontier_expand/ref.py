@@ -92,3 +92,22 @@ def frontier_gather(src, dst, live, val, nv: int, mode: str = "min"
         inc = gather_min(src, dst, live, reached.int() - 1, nv)
         return pack_bits(inc == 0)
     raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+
+
+def frontier_gather_lanes(src, dst, live, val, nv: int, mode: str = "min"
+                          ) -> torch.Tensor:
+    """The gather form over T tenant rows: src, dst, live [T, E] with
+    row-local vertex ids, val int32 words [T, F, n_src] -> [T, F, nv].
+    Edge e of row t reads val[t, :, src[t, e]] and writes out[t, :,
+    dst[t, e]]: the rows become one graph of T x n_src vertices with row
+    offsets added (an edge whose ids fall outside its row is dropped
+    first), through :func:`frontier_gather`."""
+    t, e = src.shape
+    f, n_src = val.shape[1], val.shape[2]
+    row = torch.arange(t, dtype=torch.int32, device=src.device)[:, None]
+    keep = live & (src >= 0) & (src < n_src) & (dst >= 0) & (dst < nv)
+    fsrc = torch.where(keep, src + row * n_src, -1).reshape(-1)
+    fdst = torch.where(keep, dst + row * nv, -1).reshape(-1)
+    flat = val.permute(1, 0, 2).reshape(f, t * n_src)
+    out = frontier_gather(fsrc, fdst, keep.reshape(-1), flat, t * nv, mode)
+    return out.reshape(f, t, nv).permute(1, 0, 2).contiguous()

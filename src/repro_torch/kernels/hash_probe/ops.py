@@ -9,6 +9,10 @@ stopped at 2^16 slots).  ``insert`` and ``remove`` are one cooperative
 launch each and read nothing back to the host.  Every launch is counted on
 its wrapper's ``launches`` (``kernels.launch_counts()`` reports the three
 together as ``hash_probe``).
+
+Each entry also takes T tenant tables at once: columns [T, C] in one
+allocation and lanes [T, B], lane (t, j) working in row t only, in the
+same one launch; those launches count on ``lane_launches`` as well.
 """
 from __future__ import annotations
 
@@ -29,35 +33,50 @@ _L = ctypes.c_longlong
 def _entry(name: str):
     fn = getattr(_build.load("hash_probe"), name)
     fn.argtypes = {
-        "hash_probe_launch": [_P] * 8 + [_I, _L, _I, _P],
-        "hash_insert_launch": [_P] * 10 + [_I, _L, _I, _P],
-        "hash_remove_launch": [_P] * 9 + [_I, _L, _I, _P],
+        "hash_probe_launch": [_P] * 8 + [_I, _I, _L, _I, _P],
+        "hash_insert_launch": [_P] * 10 + [_I, _I, _L, _I, _P],
+        "hash_remove_launch": [_P] * 9 + [_I, _I, _L, _I, _P],
     }[name]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _check_args(src, dst, state, base, u, v, max_probes, enable=None):
+    """(device, C, T, B): columns [C] with lanes [B] (T = 1), or columns
+    [T, C] with lanes [T, B]."""
     dev = u.device
-    cap = src.shape[0]
-    b = u.shape[0]
-    cols = (("src", src), ("dst", dst), ("u", u), ("v", v))
-    for name, t in cols + ((("base", base),) if base is not None else ()):
-        _build.require(t, name, torch.int32, 1, dev)
-    _build.require(state, "state", torch.int8, 1, dev)
+    nd = src.dim()
+    if nd not in (1, 2):
+        raise ValueError("table columns are [C] or [T, C]")
+    cap = src.shape[-1]
+    t = src.shape[0] if nd == 2 else 1
+    b = u.shape[-1]
+    lanes = (("u", u), ("v", v)) + ((("base", base),) if base is not None
+                                    else ())
+    for name, x in (("src", src), ("dst", dst)) + lanes:
+        _build.require(x, name, torch.int32, nd, dev)
+    _build.require(state, "state", torch.int8, nd, dev)
     if enable is not None:
-        _build.require(enable, "enable", torch.bool, 1, dev)
-        if enable.shape[0] != b:
-            raise ValueError("enable must have one flag per lane")
-    if cap & (cap - 1) or dst.shape[0] != cap or state.shape[0] != cap:
+        _build.require(enable, "enable", torch.bool, nd, dev)
+        lanes += (("enable", enable),)
+    if cap & (cap - 1) or dst.shape != src.shape or \
+            state.shape != src.shape:
         raise ValueError("table columns must share a power-of-two length")
-    if cap > 2 ** 30:
-        raise ValueError("table capacity above 2^30")
-    if v.shape[0] != b or (base is not None and base.shape[0] != b):
-        raise ValueError("base, u and v must share one lane count")
+    if cap > 2 ** 30 or t * cap > 2 ** 31:
+        raise ValueError("table capacity above 2^30 or 2^31 slots in all")
+    if any(x.shape != u.shape for _, x in lanes) or \
+            (nd == 2 and u.shape[0] != t):
+        raise ValueError("base, u, v and enable must share one [T, B] "
+                         "lane shape, one row per table")
     if max_probes < 0:
         raise ValueError("max_probes must be >= 0")
-    return dev, cap, b
+    return dev, cap, t, b
+
+
+def _count(fn, src):
+    fn.launches += 1
+    if src.dim() == 2:
+        fn.lane_launches += 1
 
 
 def probe(src, dst, state, base, u, v, *, max_probes: int,
@@ -67,19 +86,20 @@ def probe(src, dst, state, base, u, v, *, max_probes: int,
     src/dst: int32[C], state: int8[C] (0=EMPTY/1=LIVE/2=TOMB), base:
     int32[B] hashed start slots, u/v: int32[B] keys; C a power of two.
     Returns ``(found: bool[B], slot: int32[B])`` with
-    ``repro.core.edge_table.lookup`` semantics.
+    ``repro.core.edge_table.lookup`` semantics; [T, C] columns take [T, B]
+    lanes and give row-local slots.
     """
     if u.device.type == "cpu":
         return ref.probe(src, dst, state, base, u, v, max_probes=max_probes)
     _build.require_kernel_impl(impl, "hash_probe")
-    dev, cap, b = _check_args(src, dst, state, base, u, v, max_probes)
-    found = torch.empty(b, dtype=torch.bool, device=dev)
-    slot = torch.empty(b, dtype=torch.int32, device=dev)
+    dev, cap, t, b = _check_args(src, dst, state, base, u, v, max_probes)
+    found = torch.empty(u.shape, dtype=torch.bool, device=dev)
+    slot = torch.empty(u.shape, dtype=torch.int32, device=dev)
     _build.check(_entry("hash_probe_launch")(
         src.data_ptr(), dst.data_ptr(), state.data_ptr(), base.data_ptr(),
-        u.data_ptr(), v.data_ptr(), found.data_ptr(), slot.data_ptr(), b,
-        cap, max_probes, _build.stream_ptr(slot)), "hash_probe")
-    probe.launches += 1
+        u.data_ptr(), v.data_ptr(), found.data_ptr(), slot.data_ptr(), t,
+        b, cap, max_probes, _build.stream_ptr(slot)), "hash_probe")
+    _count(probe, src)
     return found, slot
 
 
@@ -98,20 +118,20 @@ def insert(src, dst, state, u, v, enable, *, max_probes: int,
         return ref.insert(src, dst, state, u, v, enable,
                           max_probes=max_probes)
     _build.require_kernel_impl(impl, "hash_probe")
-    dev, cap, b = _check_args(src, dst, state, None, u, v, max_probes,
-                              enable)
-    placed = torch.empty(b, dtype=torch.bool, device=dev)
-    failed = torch.empty(b, dtype=torch.bool, device=dev)
+    dev, cap, t, b = _check_args(src, dst, state, None, u, v, max_probes,
+                                 enable)
+    placed = torch.empty(u.shape, dtype=torch.bool, device=dev)
+    failed = torch.empty(u.shape, dtype=torch.bool, device=dev)
     counts = torch.zeros(max_probes + 2, dtype=torch.int32, device=dev)
-    if b == 0:
+    if t * b == 0:
         return placed, failed, counts[-1]
-    claims = torch.empty(2 * cap, dtype=torch.int32, device=dev)
+    claims = torch.empty(2 * t * cap, dtype=torch.int32, device=dev)
     _build.check(_entry("hash_insert_launch")(
         src.data_ptr(), dst.data_ptr(), state.data_ptr(), u.data_ptr(),
         v.data_ptr(), enable.data_ptr(), placed.data_ptr(),
-        failed.data_ptr(), claims.data_ptr(), counts.data_ptr(), b, cap,
+        failed.data_ptr(), claims.data_ptr(), counts.data_ptr(), t, b, cap,
         max_probes, _build.stream_ptr(placed)), "hash_insert")
-    insert.launches += 1
+    _count(insert, src)
     return placed, failed, counts[-1]
 
 
@@ -125,22 +145,22 @@ def remove(src, dst, state, u, v, enable, *, max_probes: int,
         return ref.remove(src, dst, state, u, v, enable,
                           max_probes=max_probes)
     _build.require_kernel_impl(impl, "hash_probe")
-    dev, cap, b = _check_args(src, dst, state, None, u, v, max_probes,
-                              enable)
-    removed = torch.empty(b, dtype=torch.bool, device=dev)
-    if b == 0:
+    dev, cap, t, b = _check_args(src, dst, state, None, u, v, max_probes,
+                                 enable)
+    removed = torch.empty(u.shape, dtype=torch.bool, device=dev)
+    if t * b == 0:
         return removed
-    slots = torch.empty(b, dtype=torch.int32, device=dev)
-    claims = torch.empty(cap, dtype=torch.int32, device=dev)
+    slots = torch.empty(u.shape, dtype=torch.int32, device=dev)
+    claims = torch.empty(t * cap, dtype=torch.int32, device=dev)
     _build.check(_entry("hash_remove_launch")(
         src.data_ptr(), dst.data_ptr(), state.data_ptr(), u.data_ptr(),
         v.data_ptr(), enable.data_ptr(), removed.data_ptr(),
-        slots.data_ptr(), claims.data_ptr(), b, cap, max_probes,
+        slots.data_ptr(), claims.data_ptr(), t, b, cap, max_probes,
         _build.stream_ptr(removed)), "hash_remove")
-    remove.launches += 1
+    _count(remove, src)
     return removed
 
 
-probe.launches = 0
-insert.launches = 0
-remove.launches = 0
+for _fn in (probe, insert, remove):
+    _fn.launches = 0
+    _fn.lane_launches = 0

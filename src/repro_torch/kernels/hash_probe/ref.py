@@ -5,6 +5,11 @@ lanes.
 
 The uint32 hash is computed in int64 masked to 32 bits; torch has no
 uint32 multiply or logical shift.
+
+Tenant rows: given [T, C] columns and [T, B] lanes, lane (t, j) walks row
+t only (slot ``t * C + ((base + p) & (C - 1))`` of the flattened table)
+and slots come back row-local; ties between lanes of one row go to the
+lower lane index, as in the single table.
 """
 from __future__ import annotations
 
@@ -28,11 +33,34 @@ def hash_slots(u: torch.Tensor, v: torch.Tensor, capacity: int
     return (h & (capacity - 1)).int()
 
 
+def _flat(cols, lanes):
+    """Flatten [T, C] columns and [T, B] lanes: (cols, lanes, row capacity
+    C, per-lane row offset int32[T B], T, B) -- offset 0 for one table."""
+    cap = cols[0].shape[-1]
+    if cols[0].dim() == 1:
+        return cols, lanes, cap, 0, None, None
+    t, b = lanes[0].shape
+    off = (torch.arange(t, dtype=torch.int32, device=lanes[0].device)
+           * cap)[:, None].expand(t, b).reshape(-1)
+    return ([c.reshape(-1) for c in cols],
+            [x.reshape(-1) for x in lanes], cap, off, t, b)
+
+
 def probe(src, dst, state, base, u, v, *, max_probes: int):
     """(found: bool[B], slot: int32[B]) -- slot is the LIVE hit slot when
     found, else the first EMPTY/TOMB slot seen (insertion point), else -1
-    on probe exhaustion.  Probing stops at a hit or a truly EMPTY slot."""
-    cap = src.shape[0]
+    on probe exhaustion.  Probing stops at a hit or a truly EMPTY slot.
+    [T, C] columns with [T, B] lanes: per row, slots row-local."""
+    (src, dst, state), (base, u, v), cap, off, t, b = _flat(
+        (src, dst, state), (base, u, v))
+    found, slot = _probe(src, dst, state, base, u, v, max_probes, cap, off)
+    if t is None:
+        return found, slot
+    return found.reshape(t, b), slot.reshape(t, b)
+
+
+def _probe(src, dst, state, base, u, v, max_probes, cap, off):
+    """probe over flat columns; slots row-local (``off`` added to index)."""
     b = u.shape[0]
     dev = u.device
     done = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -41,7 +69,7 @@ def probe(src, dst, state, base, u, v, *, max_probes: int):
     free = torch.full((b,), -1, dtype=torch.int32, device=dev)
     for i in range(max_probes):
         pos = (base + i) & (cap - 1)
-        pl = pos.long()
+        pl = (pos + off).long()
         st = state[pl]
         hit = (st == LIVE) & (src[pl] == u) & (dst[pl] == v)
         free = torch.where(~done & (st != LIVE) & (free < 0), pos, free)
@@ -59,15 +87,28 @@ def insert(src, dst, state, u, v, enable, *, max_probes: int):
     intra-batch duplicates.  Returns ``(placed: bool[B], failed: bool[B],
     rounds)``, ``rounds`` a 0-d int32 tensor: the rounds run before no lane
     was pending (JAX runs all ``max_probes``; the rounds after change
-    nothing)."""
-    cap = src.shape[0]
+    nothing).  [T, C] columns with [T, B] lanes: each row's lanes insert
+    into that row (rounds shared)."""
+    cols = (src, dst, state)
+    (fsrc, fdst, fstate), (u, v, enable), cap, off, t, b = _flat(
+        cols, (u, v, enable))
+    placed, failed, rounds = _insert(fsrc, fdst, fstate, u, v, enable,
+                                     max_probes, cap, off)
+    if t is None:
+        return placed, failed, rounds
+    for col, flat in zip(cols, (fsrc, fdst, fstate)):
+        col.copy_(flat.view_as(col))
+    return placed.reshape(t, b), failed.reshape(t, b), rounds
+
+
+def _insert(src, dst, state, u, v, enable, max_probes, cap, off):
     b = u.shape[0]
     dev = u.device
     base = hash_slots(u, v, cap)
-    found, _ = probe(src, dst, state, base, u, v, max_probes=max_probes)
+    found, _ = _probe(src, dst, state, base, u, v, max_probes, cap, off)
     want = enable & ~found
     lane = torch.arange(b, dtype=torch.int32, device=dev)
-    claims = torch.empty(cap, dtype=torch.int32, device=dev)
+    claims = torch.empty(src.shape[0], dtype=torch.int32, device=dev)
     placed = torch.zeros(b, dtype=torch.bool, device=dev)
     probe_at = torch.zeros(b, dtype=torch.int32, device=dev)
     rounds = 0
@@ -76,7 +117,7 @@ def insert(src, dst, state, u, v, enable, *, max_probes: int):
         if not bool(pending.any()):
             break
         rounds += 1
-        pos = ((base + probe_at) & (cap - 1)).long()
+        pos = (((base + probe_at) & (cap - 1)) + off).long()
         contend = pending & (state[pos] != LIVE)
         # scatter-min claim over this round's slots: the lowest lane wins
         claims[pos] = b
@@ -100,14 +141,25 @@ def insert(src, dst, state, u, v, enable, *, max_probes: int):
 def remove(src, dst, state, u, v, enable, *, max_probes: int):
     """Remove's hash, lookup, lowest-lane claim of each hit slot and TOMB
     write, writing into ``state`` in place.  Returns ``removed:
-    bool[B]``."""
+    bool[B]`` ([T, B] over [T, C] columns)."""
+    (fsrc, fdst, fstate), (u, v, enable), cap, off, t, b = _flat(
+        (src, dst, state), (u, v, enable))
+    removed = _remove(fsrc, fdst, fstate, u, v, enable, max_probes, cap,
+                      off)
+    if t is None:
+        return removed
+    state.copy_(fstate.view_as(state))
+    return removed.reshape(t, b)
+
+
+def _remove(src, dst, state, u, v, enable, max_probes, cap, off):
     b = u.shape[0]
     dev = u.device
-    found, slot = probe(src, dst, state, hash_slots(u, v, src.shape[0]), u,
-                        v, max_probes=max_probes)
+    found, slot = _probe(src, dst, state, hash_slots(u, v, cap), u, v,
+                         max_probes, cap, off)
     hit = found & enable
     lane = torch.arange(b, dtype=torch.int32, device=dev)
-    pos = torch.where(hit, slot, 0).long()
+    pos = (torch.where(hit, slot, 0) + off).long()
     claims = torch.empty(src.shape[0], dtype=torch.int32, device=dev)
     claims[pos] = b
     claims.scatter_reduce_(0, pos, torch.where(hit, lane, b), reduce="amin")

@@ -6,6 +6,9 @@ SCC service.
     python -m repro_torch.launch.serve --steps 64 --readers 2
     python -m repro_torch.launch.serve --steps 20 --readers 2 \
         --replicas 2 --dir /tmp/scc-store
+    python -m repro_torch.launch.serve --tenants 4 --steps 32
+    python -m repro_torch.launch.serve --tenants 4 --steps 8 --dir /tmp/t \
+        --device cpu
     python -m repro_torch.launch.serve --arch qwen3-14b --device cpu --steps 4
 
 ``--arch smscc`` (the default): a typed GraphClient update stream with
@@ -13,9 +16,12 @@ SameSCC / Reachable query batches between chunks, over an SCCService
 booted with every vertex slot live; ``--readers N`` moves the queries to
 N reader threads over one shared broker, and ``--replicas N --dir D``
 makes the store durable (a WAL-backed writer in ``D``) and serves the
-readers from N replicas tailing its log.  An LM arch: the arch's smoke
-config with random weights serves one batch of prompts, prefill then
-greedy decode.  Runs on ``cuda`` unless ``--device`` says otherwise.
+readers from N replicas tailing its log; ``--tenants N`` serves N
+independent graphs behind one lane-batched engine and admission queue
+(with ``--dir D``, each tenant durable under ``D/tenants``).  An LM arch:
+the arch's smoke config with random weights serves one batch of prompts,
+prefill then greedy decode.  Runs on ``cuda`` unless ``--device`` says
+otherwise.
 """
 from __future__ import annotations
 
@@ -70,6 +76,89 @@ def serve_smscc(steps: int, nv: int = 2048, chunk: int = 256,
                                 query_frac=0.5, chunk=chunk, n_queries=1024)
     print(rep.pretty())
     return rep
+
+
+def serve_tenants(steps: int, tenants: int, nv: int = 256,
+                  chunk: int = 64, directory: str | None = None,
+                  device: str = gs.DEFAULT_DEVICE) -> dict:
+    """Multi-tenant serving: N independent session graphs behind ONE
+    lane-batched engine and one admission queue
+    (:class:`repro_torch.tenancy.MultiTenantService`).  Each tenant runs
+    its own typed ``GraphClient`` session on its own thread; concurrent
+    submits coalesce into tenant-batched dispatches.  With ``directory``
+    the store is durable per tenant (snapshot + WAL).  Returns the
+    service's stats with the run's ``wall_s``, ``ops`` and ``final``
+    (tenant id -> its last committed (state, gen))."""
+    import threading
+
+    from repro_torch.api import SameSCC
+    from repro_torch.tenancy import MultiTenantService
+
+    cfg = smscc.config(n_vertices=nv, edge_capacity=max(256, nv),
+                       max_probes=64, max_outer=64, max_inner=64)
+    mts = MultiTenantService(cfg, buckets=(chunk,),
+                             scan_lengths=smscc.SCAN_LENGTHS,
+                             directory=directory,
+                             coalesce_ops=tenants * chunk,
+                             flush_deadline_s=0.005, device=device)
+    tids = [mts.create_tenant() for _ in range(tenants)]
+    done = []
+    errors = []
+
+    def drive(tid, i):
+        try:
+            client = mts.client(tid)
+            rng = np.random.default_rng(100 + i)
+            n_ops = 0
+            client.submit_many(stream.typed_op_stream(
+                nv, chunk, step=0, add_frac=1.0, seed=i,
+                include_vertex_ops=True))
+            for step in range(steps):
+                client.submit_many(stream.typed_op_stream(
+                    nv, chunk, step=step + 1, add_frac=0.7, seed=i))
+                n_ops += chunk
+                qs = [SameSCC(int(a), int(b)) for a, b in
+                      zip(rng.integers(0, nv, 16), rng.integers(0, nv, 16))]
+                client.submit_many(qs)
+            client.close()
+            done.append(n_ops)
+        except Exception as e:  # re-raised below, on the caller
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=drive, args=(tid, i))
+               for i, tid in enumerate(tids)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        mts.close()
+        raise errors[0]
+    total = sum(done)
+    agg = mts.stats()
+    print(f"served {tenants} tenants x {steps} chunks "
+          f"({total} update ops) in {wall:.2f}s "
+          f"({int(total / wall)} ops/s aggregate) on {device}")
+    q = agg["queue"]
+    print(f"[queue] waves={q['waves']} causes={q['flush_causes']} "
+          f"depth_max={q['depth_max_ops']} rejects={q['rejects']} "
+          f"pool={q['pool']}")
+    e = agg["engine"]
+    print(f"[engine] compile_count={e['compile_count']} "
+          f"(bound {e['compile_bound']}) solo_replays={e['solo_replays']} "
+          f"occupancy={e['occupancy']['frac']}")
+    for tid in tids[:4]:
+        print(f"[tenant {tid}] " + " | ".join(
+            f"{k}={v}" for k, v in mts.tenant_stats(tid).items()
+            if k in ("gen", "applied_chunks", "fallback_chunks", "grows",
+                     "p50_s", "p95_s")))
+    final = {tid: (mts._tenant_state(tid), mts.tenant_gen(tid))
+             for tid in tids}
+    mts.close()
+    agg.update(wall_s=wall, ops=total, final=final)
+    return agg
 
 
 def _sync(device: torch.device) -> None:
@@ -192,7 +281,11 @@ def main():
                     help="smscc only: serve reads from N WAL-tailing "
                          "replicas over a durable writer (needs --dir)")
     ap.add_argument("--dir", dest="directory", default=None,
-                    help="smscc only: durable store root for --replicas")
+                    help="smscc only: durable store root for --replicas "
+                         "or --tenants")
+    ap.add_argument("--tenants", type=int, default=0,
+                    help="smscc only: serve N tenants' graphs behind one "
+                         "lane-batched engine")
     args = ap.parse_args()
     mod = configs.get(args.arch)
     if mod.FAMILY == "lm":
@@ -202,6 +295,9 @@ def main():
               f"batch {rep['batch']} in {rep['decode_s']:.3f}s "
               f"({rep['decode_tok_per_s']} tok/s) on {rep['device']}")
         print("sample:", rep["tokens"][0][:16])
+    elif args.tenants > 0:
+        serve_tenants(args.steps, args.tenants, directory=args.directory,
+                      device=args.device)
     else:
         serve_smscc(args.steps, readers=args.readers,
                     replicas=args.replicas, directory=args.directory,

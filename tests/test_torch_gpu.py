@@ -270,6 +270,114 @@ def test_edge_table_writes_make_no_host_sync(cuda):
             assert torch.equal(a.cpu(), b)
 
 
+# ----------------------------------------------------- tenant rows ---
+
+
+def _lane_rows(cuda, t_n, seed, e, nv, f, mode):
+    """T rows of ragged edges (-1 padding, ids past nv, a dead row) and
+    values, as in _gather_case."""
+    rows = [_gather_case(seed + i, e, nv, f, mode) for i in range(t_n)]
+    src, dst, live, val = (np.stack(c) for c in zip(*rows))
+    if t_n > 1:
+        live[1] = False
+    return [torch.from_numpy(x).to(cuda) for x in (src, dst, live, val)]
+
+
+@pytest.mark.parametrize("t_n", [1, 3, 256])
+@pytest.mark.parametrize("mode,f", [("min", 1), ("min", 3), ("pair", 2),
+                                    ("or", 2)])
+def test_frontier_gather_lanes_kernel(cuda, t_n, mode, f):
+    """The tenant-row gather on the card == its plain version, and == one
+    single-graph launch per row."""
+    e, nv = (301, 37) if t_n == 256 else (3001, 257)
+    src, dst, live, val = _lane_rows(cuda, t_n, t_n + f, e, nv, f, mode)
+    before = fops.frontier_min.lane_launches
+    got = fops.frontier_gather(src, dst, live, val, nv, mode=mode)
+    assert fops.frontier_min.lane_launches == before + 1
+    assert got.shape == (t_n, f, nv)
+    assert torch.equal(got, fref.frontier_gather_lanes(src, dst, live, val,
+                                                       nv, mode))
+    for t in (0, t_n - 1):
+        assert torch.equal(got[t], fops.frontier_gather(
+            src[t], dst[t], live[t], val[t], nv, mode=mode))
+
+
+def _lane_tables(cuda, t_n, cap, b, seed):
+    """T rows of _write_case tables and lanes; row 0 filled to ~97%, so
+    its inserts fail at a short probe bound while the others' fit."""
+    cases = [_write_case(cuda, seed + i, cap, 0.97 if i == 0 else 0.05, b)
+             for i in range(t_n)]
+    table = tet.EdgeTable(*(torch.stack(c) for c in
+                            zip(*(case[0] for case in cases))))
+    u, v, en = (torch.stack(c) for c in zip(*(case[1:] for case in cases)))
+    return table, u, v, en
+
+
+@pytest.mark.parametrize("t_n", [1, 3, 256])
+def test_hash_probe_lanes_kernels(cuda, t_n):
+    """Lookup, insert and remove over [T, C] tables on the card == their
+    plain versions; the insert fails lanes in row 0 only."""
+    cap, b, mp = (1024, 300, 8) if t_n < 256 else (1024, 64, 8)
+    table, u, v, en = _lane_tables(cuda, t_n, cap, b, 11 * t_n)
+    base = href.hash_slots(u, v, cap)
+    found = hops.probe(*table, base, u, v, max_probes=mp)
+    want = href.probe(*table, base, u, v, max_probes=mp)
+    assert all(torch.equal(a, w) for a, w in zip(found, want))
+    before = hops.insert.lane_launches
+    got, want = _insert_both(table, u, v, en, mp)
+    assert hops.insert.lane_launches == before + 1
+    _assert_same_insert(got, want)
+    failed = got[2]
+    assert bool(failed[0].any()), "row 0 failed no lane"
+    if t_n > 1:
+        assert not bool(failed[1:].any()), "a roomy row failed lanes"
+    states, flags = [], []
+    for fn in (hops.remove, href.remove):
+        st = table.state.clone()
+        flags.append(fn(table.src, table.dst, st, u, v, en,
+                        max_probes=mp))
+        states.append(st)
+    assert torch.equal(states[0], states[1])
+    assert torch.equal(flags[0], flags[1])
+
+
+def test_lane_step_and_engine_on_card_match_cpu(cuda):
+    """The lane-batched scan step and a TenantEngine on the card give the
+    CPU's states, acks and repair tiers."""
+    from repro_torch.tenancy import TenantEngine
+
+    cfg = tgs.GraphConfig(n_vertices=64, edge_capacity=256, max_probes=16,
+                          max_outer=65, max_inner=66,
+                          region_vertex_capacity=32,
+                          region_edge_buckets=(16, 64))
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        eng = TenantEngine(buckets=(32,), scan_lengths=(1, 4),
+                           tenant_batches=(1, 4), device=dev)
+        for i in range(5):
+            eng.create_tenant(f"t{i}", cfg)
+        acks = []
+        for w in range(6):
+            wave = []
+            for i in range(5):
+                r = np.random.default_rng(100 * w + i)
+                n = 32 * (1 + (i + w) % 4)
+                kind = r.choice([0, 0, 0, 1, 2, 3], n).astype(np.int32)
+                wave.append((f"t{i}", kind,
+                             r.integers(0, 64, n).astype(np.int32),
+                             r.integers(0, 64, n).astype(np.int32)))
+            res = eng.apply_chunks(wave)
+            acks.append([(res[f"t{i}"][0].tolist(), res[f"t{i}"][1])
+                         for i in range(5)])
+        runs[dev.type] = (acks, [eng.tenant_state(f"t{i}").ccid.cpu()
+                                 for i in range(5)],
+                          eng.stats()["repair_lane_steps"])
+    assert runs["cuda"][0] == runs["cpu"][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs["cuda"][1],
+                                                 runs["cpu"][1]))
+    assert runs["cuda"][2] == runs["cpu"][2]
+
+
 def test_bool_matmul_kernel(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     for m, k, n in ((1, 1, 1), (65, 33, 130), (256, 256, 256)):

@@ -246,7 +246,9 @@ def test_port_imports_nothing_of_jax():
     port = ROOT / "src" / "repro_torch"
     for rel in ("ckpt/checkpoint.py", "ckpt/oplog.py", "ckpt/durable.py",
                 "core/replicas.py", "fault/inject.py", "ha/lease.py",
-                "launch/replica.py", "launch/stream.py"):
+                "launch/replica.py", "launch/stream.py", "launch/chaos.py",
+                "tenancy/engine.py", "tenancy/multi_service.py",
+                "tenancy/queue.py"):
         assert port / rel in files, rel
     for path in files:
         for mod in _imports(path):
