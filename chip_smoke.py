@@ -16,7 +16,9 @@ Phases, each printing one line or more:
    at the main paths' shapes (exact for the SMSCC kernels, bool_matmul
    also at density 1.0; 3e-2 for bf16 and 2e-5 for f32 attention, and the
    bf16 kernel against the f32 answer at the main shapes and at four
-   band-sensitive shapes; 1e-5 for the embedding bag), with CUDA-event
+   band-sensitive shapes, flash also at the MoE archs' prefill layers,
+   moonshot's 16 heads on 16 kv heads and qwen3-moe's 64 on 4; 1e-5 for
+   the embedding bag, also at MIND's profile bag), with CUDA-event
    times: the kernel and one library call as device time per call (calls
    captured in a CUDA graph and replayed), the kernel's wrapper called back
    to back (``host_ms``: device time plus the host's launch cost), the
@@ -58,9 +60,15 @@ Phases, each printing one line or more:
    on the [B,S,H,D] buffers as they lie (no layout copy);
    one more decode step, replayed from a CUDA graph, gives the device's
    time per step apart from the host's;
-8. LM card vs CPU: the qwen3 and danube smoke configs in f32 (TF32 off),
-   the same weights on both devices through ``carry``, prefill then decode
-   teacher-forced with the CPU's greedy tokens: logits within 2e-4;
+   then the MoE archs the same way: moonshot-v1-16b-a3b at full width and
+   depth (48 layers, 64 experts top-6 + 2 shared, bf16, 28552923136
+   parameters) and qwen3-moe-235b-a22b at full width and 4 of its 94
+   layers (``reduced`` says why), 4 x 4096 prompt tokens and 16 decode
+   steps each, flash once per layer;
+8. LM card vs CPU: the qwen3, danube, moonshot and qwen3-moe smoke
+   configs in f32 (TF32 off), the same weights on both devices through
+   ``carry``, prefill then decode teacher-forced with the CPU's greedy
+   tokens: logits within 2e-4;
 9. durable path (run after phase 5): update_1m's booted graph takes the 8
    chunks through a plain SCCService, then through a DurableService
    writer (fsync per record, a background snapshot every 4 generations)
@@ -84,15 +92,29 @@ Phases, each printing one line or more:
    root (its stores open equal on the CPU); one chaos soak seed.  The
    tenant-row forms of frontier_min and hash_probe are held to their
    plain versions at class A's shape and timed;
-11. the kernels line (JSON; frontier_min and hash_probe also carry their
-   tenant-row form under ``lanes``), the card line, and the device line
-   last.
+11. baselines (after phase 10, ``baselines_path``): the paper's §7
+   comparison at 2^14 vertices and 2^16 slots, one seeded preloaded graph
+   and 256 ops of the paper's mix through ``dynamic.apply_batch`` (B =
+   256), ``sequential_apply``, ``coarse_apply`` and
+   ``static_per_batch_apply``: update ops/s of each, all four on one
+   graph and labelling, each equal to a static recompute;
+12. MIND (after phase 8, ``mind_path``): ``configs/mind.py``'s full
+   config (2^21 x 64 item table, 8192 x 64 profile table) through
+   ``serve_mind``: 8 serve_p99 requests (512 users x 2048 candidates,
+   scores/s and per-request latency) and one retrieval_cand request (1
+   user, 10^6 candidates, top 100), the profile bag's kernel once a
+   request; then MIND's smoke config card vs CPU, scores within 1e-5;
+13. the kernels line (JSON; frontier_min and hash_probe also carry their
+   tenant-row form under ``lanes``; flash and the bag their launches on
+   each path under ``launches_by_path``, flash its MoE-shape rows under
+   ``moe_shapes``), the card line, and the device line last.
 
 Any failed check exits non-zero.  Without a CUDA card it exits 1 before
 printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -758,6 +780,10 @@ def lm_kernel_checks(torch, dev) -> dict:
     for tag, b, h, hkv, s, d, window, dtype, tol, reps in (
             ("qwen3-14b prefill layer", 4, 40, 8, 4096, 128, 0,
              torch.bfloat16, 3e-2, 10),
+            ("moonshot-v1-16b-a3b prefill layer", 4, 16, 16, 4096, 128, 0,
+             torch.bfloat16, 3e-2, 10),
+            ("qwen3-moe-235b-a22b prefill layer", 4, 64, 4, 4096, 128, 0,
+             torch.bfloat16, 3e-2, 10),
             ("h2o-danube-3-4b", 1, 32, 8, 8192, 120, 4096, torch.bfloat16,
              3e-2, 10),
             ("ragged f32", 2, 8, 4, 1000, 16, 0, torch.float32, 2e-5, 10)):
@@ -810,19 +836,30 @@ def lm_kernel_checks(torch, dev) -> dict:
         torch.cuda.empty_cache()
     emit("kernel", name="flash_attention", rows=rows)
     out["flash_attention"] = rows[0]
+    out["flash_attention_moe"] = rows[1:3]
     emit("flash_band_checks", rows=flash_band_checks(torch, aops, aref, g,
                                                      dev))
 
     # embedding_bag: MIND's item table (2^21 x 64 f32) and serve_p99 bags
-    # (512 x 50), ~20% padding; sum, weighted sum and mean
-    table, ids = mind_table(torch, dev, g), mind_ids(torch, dev, g)
-    wts = torch.rand(ids.shape, generator=g, device=dev)
-    valid = (ids >= 0) & (ids < table.shape[0])
-    nnz = int(valid.sum())
-    safe_ids = torch.where(valid, ids, torch.zeros_like(ids))
-    n_ids = (ids >= 0).sum(1, keepdim=True).clamp_min(1).float()
+    # (512 x 50), ~20% padding, in sum, weighted sum and mean; then MIND's
+    # profile bag as its serving path calls it: the 8192 x 64 profile
+    # table, 512 bags of 8 ids drawn from [-1, 8192) (serve_mind's draw),
+    # mean
+    item_table, item_ids = mind_table(torch, dev, g), mind_ids(torch, dev, g)
+    wts = torch.rand(item_ids.shape, generator=g, device=dev)
+    prof_table = torch.randn((8192, 64), generator=g, device=dev)
+    prof_ids = torch.randint(-1, 8192, (512, 8), generator=g, device=dev,
+                             dtype=torch.int32)
     rows = []
-    for mode, weights in (("sum", None), ("sum", wts), ("mean", None)):
+    for table, ids, mode, weights in (
+            (item_table, item_ids, "sum", None),
+            (item_table, item_ids, "sum", wts),
+            (item_table, item_ids, "mean", None),
+            (prof_table, prof_ids, "mean", None)):
+        valid = (ids >= 0) & (ids < table.shape[0])
+        nnz = int(valid.sum())
+        safe_ids = torch.where(valid, ids, torch.zeros_like(ids))
+        n_ids = (ids >= 0).sum(1, keepdim=True).clamp_min(1).float()
         got = eops.embedding_bag(table, ids, mode=mode, weights=weights)
         want = eref.embedding_bag(table, ids, mode=mode, weights=weights)
         check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
@@ -849,7 +886,7 @@ def lm_kernel_checks(torch, dev) -> dict:
                 safe_ids, table, mode="sum", per_sample_weights=e), 20),
             bound_ms=b_ms, bound_by=b_by)))
     emit("kernel", name="embedding_bag", rows=rows)
-    out["embedding_bag"] = rows[1]
+    out["embedding_bag"] = rows[3]  # the MIND serving path's bag
     return out
 
 
@@ -1113,46 +1150,55 @@ def bag_path(torch, dev, n_requests=8) -> dict:
             "bags_per_s": len(outs) * 512 / seconds, "launches": launches}
 
 
-def lm_path(torch, dev) -> dict:
-    """Qwen3-14B at full width and depth through ``serve_lm``: 4 requests
-    of 4096 prompt tokens, then 32 greedy decode steps; then one decode
-    step replayed from a CUDA graph for its device time alone."""
+def lm_path(torch, dev, cfg, *, batch=4, prompt=4096, steps=32,
+            graph_reps=8, reduced=None) -> dict:
+    """``cfg`` through ``serve_lm``: ``batch`` requests of ``prompt``
+    tokens, then ``steps`` greedy decode steps; then one decode step
+    replayed from a CUDA graph for its device time alone.  Flash must
+    launch once per layer, on the [B,S,H,D] buffers as they lie."""
     from repro_torch import kernels
-    from repro_torch.configs import qwen3_14b
     from repro_torch.kernels.flash_attention import ops as aops
     from repro_torch.launch import serve
 
-    cfg = qwen3_14b.config(attn_impl="flash")
-    batch, prompt, steps = 4, 4096, 32
     kernels.reset_launch_counts()
     copies = aops.mha.layout_copies
     rep = serve.serve_lm(cfg, steps, batch=batch, prompt_len=prompt,
                          cache_len=prompt + steps, device=str(dev),
-                         seed=SEED, graph_reps=8)
+                         seed=SEED, graph_reps=graph_reps)
     rep["launches"] = kernels.launch_counts()
     rep["flash_layout_copies"] = aops.mha.layout_copies - copies
+    if cfg.moe is not None:
+        rep["n_active_params"] = cfg.n_active_params()
+        rep["moe"] = {k: getattr(cfg.moe, k) for k in (
+            "n_experts", "top_k", "d_ff", "n_shared_experts",
+            "capacity_factor", "dispatch", "n_groups")}
+    if reduced:
+        rep["reduced"] = reduced
     tokens = rep.pop("tokens")
     rep["tokens_row0"] = tokens[0]
-    check(rep["logits_finite"], "LM logits are not finite")
+    check(rep["logits_finite"], f"{cfg.name}: logits are not finite")
     check(len(tokens) == batch and all(
         len(t) == steps and all(0 <= x < cfg.vocab for x in t)
-        for t in tokens), "LM tokens out of range")
+        for t in tokens), f"{cfg.name}: tokens out of range")
     check(rep["launches"]["flash_attention"] == cfg.n_layers,
-          f"flash launched {rep['launches']['flash_attention']} times, "
-          f"expected one per layer ({cfg.n_layers})")
+          f"{cfg.name}: flash launched {rep['launches']['flash_attention']} "
+          f"times, expected one per layer ({cfg.n_layers})")
     check(rep["flash_layout_copies"] == 0,
-          f"the prefill copied {rep['flash_layout_copies']} tensors for TMA")
+          f"{cfg.name}: the prefill copied {rep['flash_layout_copies']} "
+          f"tensors for TMA")
     return rep
 
 
 def lm_card_vs_cpu(torch, dev) -> dict:
-    """The qwen3 and danube smoke configs in f32, one set of weights on
-    both devices through ``carry``; prefill, then decode teacher-forced
-    with the CPU's greedy tokens.  Logits must agree within 2e-4."""
+    """The qwen3, danube, moonshot and qwen3-moe smoke configs in f32, one
+    set of weights on both devices through ``carry``; prefill, then decode
+    teacher-forced with the CPU's greedy tokens.  Logits must agree within
+    2e-4."""
     import numpy as np
 
     from repro_torch import carry
-    from repro_torch.configs import h2o_danube_3_4b, qwen3_14b
+    from repro_torch.configs import (h2o_danube_3_4b, moonshot_v1_16b_a3b,
+                                     qwen3_14b, qwen3_moe_235b_a22b)
     from repro_torch.kernels.flash_attention import ops as aops
     from repro_torch.models import transformer as tf
 
@@ -1160,7 +1206,8 @@ def lm_card_vs_cpu(torch, dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     batch, prompt, steps, tol = 4, 40, 8, 2e-4  # prompt > danube's window
     out = {}
-    for mod in (qwen3_14b, h2o_danube_3_4b):
+    for mod in (qwen3_14b, h2o_danube_3_4b, moonshot_v1_16b_a3b,
+                qwen3_moe_235b_a22b):
         cfg = mod.smoke_config(attn_impl="flash")
         tree = carry.lm_params_to_numpy(
             tf.init(cfg, torch.Generator().manual_seed(SEED), "cpu"))
@@ -1189,6 +1236,165 @@ def lm_card_vs_cpu(torch, dev) -> dict:
               f"{cfg.name}: card and CPU logits differ by {err}")
         out[cfg.name] = {"max_abs_err": err, "logits_compared": cpu.numel()}
     return {"tolerance": tol, "prompt": prompt, "steps": steps, **out}
+
+
+def mind_path(torch, dev, p99_requests=8) -> dict:
+    """MIND at ``configs/mind.py``'s full config through ``serve_mind``:
+    ``p99_requests`` serve_p99 requests (512 users x 2048 candidates), then
+    one retrieval_cand request (1 user, 10^6 candidates, top 100), each
+    counted from 0: the profile bag's kernel must launch once a request."""
+    from repro_torch import kernels
+    from repro_torch.configs import mind
+    from repro_torch.launch import serve
+
+    cfg = mind.config()
+    out = {"n_items": cfg.n_items, "embed_dim": cfg.embed_dim,
+           "profile_vocab": cfg.profile_vocab,
+           "profile_len": cfg.profile_len, "seq_len": cfg.seq_len}
+    for tag, n, kw in (
+            ("serve_p99", p99_requests, mind.SHAPES["serve_p99"]),
+            ("retrieval_cand", 1, dict(mind.SHAPES["retrieval_cand"],
+                                       top_k=100))):
+        kernels.reset_launch_counts()
+        rep = serve.serve_mind(cfg, n, batch=kw["batch"], n_cand=kw["n_cand"],
+                               top_k=kw.get("top_k", 0), device=str(dev),
+                               seed=SEED)
+        rep["launches"] = kernels.launch_counts()
+        last = rep.pop("last")
+        check(rep["scores_finite"], f"MIND {tag}: scores are not finite")
+        check(rep["launches"]["embedding_bag"] == n,
+              f"MIND {tag}: the bag launched "
+              f"{rep['launches']['embedding_bag']} times for {n} requests")
+        if tag == "serve_p99":
+            check(tuple(last.shape) == (kw["batch"], kw["n_cand"]),
+                  f"MIND {tag}: scores shaped {tuple(last.shape)}")
+        else:
+            vals, idx = last
+            check(tuple(idx.shape) == (1, 100)
+                  and bool((vals[:, :-1] >= vals[:, 1:]).all())
+                  and int(idx.min()) >= 0 and int(idx.max()) < kw["n_cand"],
+                  f"MIND {tag}: top-100 out of order or out of range")
+            rep["top5"] = vals[0, :5].tolist()
+        out[tag] = rep
+    return out
+
+
+def mind_card_vs_cpu(torch, dev) -> dict:
+    """MIND's smoke config, one set of weights on both devices through
+    ``carry``, one batch of 32 users x 512 candidates: scores within
+    1e-5; the top-100 indices are compared and reported."""
+    import numpy as np
+
+    from repro_torch import carry
+    from repro_torch.configs import mind as mind_cfg
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.models.recsys import mind
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, tol = mind_cfg.smoke_config(), 1e-5
+    tree = carry.mind_params_to_numpy(
+        mind.init(cfg, torch.Generator().manual_seed(SEED), "cpu"))
+    rng = np.random.default_rng(SEED)
+    batch = {"behavior": rng.integers(-1, cfg.n_items, (32, cfg.seq_len)),
+             "profile": rng.integers(-1, cfg.profile_vocab,
+                                     (32, cfg.profile_len)),
+             "candidates": rng.integers(0, cfg.n_items, (32, 512))}
+    runs = []
+    for d in (torch.device("cpu"), dev):
+        params = carry.mind_params_from_numpy(tree, cfg, d)
+        b = {k: torch.from_numpy(v.astype(np.int32)).to(d)
+             for k, v in batch.items()}
+        before = eops.embedding_bag.launches
+        scores = mind.serve_score(params, b, cfg)
+        vals, idx = mind.retrieve_topk(params, b, cfg)
+        if d.type == "cuda":
+            check(eops.embedding_bag.launches - before == 2,
+                  "MIND: the bag did not run in the card's requests")
+        runs.append((scores.cpu(), vals.cpu(), idx.cpu()))
+    (cs, cv, ci), (gs_, gv, gi) = runs
+    err = float((gs_ - cs).abs().max())
+    check(torch.allclose(gs_, cs, rtol=tol, atol=tol),
+          f"MIND: card and CPU scores differ by {err}")
+    check(torch.allclose(gv, cv, rtol=tol, atol=tol),
+          "MIND: card and CPU top-100 scores differ")
+    return {"tolerance": tol, "max_abs_err": err,
+            "scores_compared": cs.numel(),
+            "topk_indices_equal": bool(torch.equal(gi, ci))}
+
+
+BASELINE_RUNS = ("apply_batch", "sequential_apply", "coarse_apply",
+                 "static_per_batch_apply")
+
+
+def baselines_path(torch, dev, nv=2 ** 14, cap=2 ** 16, b=256) -> dict:
+    """The paper's §7 comparison on the card: one seeded graph (out-degree
+    2 preload + recompute) and one batch of ``b`` ops of the paper's mix
+    (add_frac 0.7, vertex ops on) through ``dynamic.apply_batch`` at B = b
+    (three times, from the same boot), ``sequential_apply``,
+    ``coarse_apply`` and ``static_per_batch_apply``, each from the boot
+    state, timed to a synchronise (ops/s = b / seconds).  Every one must
+    end on labels equal to a static recompute of its own graph; all four
+    on one graph and one labelling (seed 0's ops hold no pair whose
+    order changes the graph: no vertex is both added and removed); the
+    two one-op-at-a-time baselines on one state and one set of acks.
+    Recorded, not gated on: the speed ratios."""
+    from repro_torch import kernels
+    from repro_torch.configs import smscc
+    from repro_torch.core import baselines, dynamic
+    from repro_torch.launch import workload
+
+    cfg = smscc.config(n_vertices=nv, edge_capacity=cap)
+    boot, n_pre = boot_state(torch, dev, cfg, 2)
+    ops = workload.op_stream(nv, b, step=0, add_frac=0.7, seed=SEED)
+    ops = dynamic.OpBatch(*(x.to(dev) for x in ops))
+    sync(torch, dev)
+
+    def timed(fn):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, ok = fn(boot, ops, cfg)
+        sync(torch, dev)
+        return st, ok, time.perf_counter() - t0, kernels.launch_counts()
+
+    runs = {}
+    batch_s = []
+    for _ in range(3):
+        st, ok, sec, launches = timed(dynamic.apply_batch)
+        batch_s.append(sec)
+    runs["apply_batch"] = (st, ok, min(batch_s), launches)
+    for name in ("sequential_apply", "coarse_apply",
+                 "static_per_batch_apply"):
+        runs[name] = timed(getattr(baselines, name))
+
+    def edges(st):
+        live = st.edges.state == 1
+        pairs = (st.edges.src[live].long() * nv + st.edges.dst[live].long())
+        return pairs.sort().values
+
+    ref_st = runs["apply_batch"][0]
+    out = {"n_vertices": nv, "edge_capacity": cap, "ops": b,
+           "preload_edges": n_pre, "apply_batch_s_each": batch_s}
+    for name, (st, ok, sec, launches) in runs.items():
+        fresh = dynamic.recompute(st, cfg)
+        check(torch.equal(fresh.ccid, st.ccid),
+              f"baselines: {name}'s labels differ from a static recompute")
+        check(torch.equal(st.ccid, ref_st.ccid)
+              and torch.equal(st.v_alive, ref_st.v_alive)
+              and torch.equal(edges(st), edges(ref_st)),
+              f"baselines: {name} ends on another graph or labelling than "
+              f"apply_batch")
+        out[name] = {"seconds": sec, "ops_per_s": b / sec,
+                     "acked": int(ok.sum()), "launches": launches,
+                     "acks_equal_apply_batch": bool(torch.equal(
+                         ok, runs["apply_batch"][1]))}
+    seq, coarse = runs["sequential_apply"], runs["coarse_apply"]
+    check(torch.equal(seq[1], coarse[1]),
+          "baselines: sequential and coarse acks differ")
+    for name in ("sequential_apply", "coarse_apply",
+                 "static_per_batch_apply"):
+        out[name]["apply_batch_speedup"] = \
+            out["apply_batch"]["ops_per_s"] / out[name]["ops_per_s"]
+    return out
 
 
 # ------------------------------------------------------------- phase 9 ---
@@ -1961,27 +2167,75 @@ def main() -> int:
               f"tenant path: {k}'s tenant-row form never launched")
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    base_rep = baselines_path(torch, dev)
+    emit("baselines_path", seconds=time.perf_counter() - t0, **base_rep)
+    for k in ("frontier_min", "hash_probe"):
+        check(all(base_rep[r]["launches"][k] > 0 for r in BASELINE_RUNS),
+              f"baselines: {k} did not launch in every run")
+    torch.cuda.empty_cache()
+
     bag_rep = bag_path(torch, dev)
     emit("embedding_bag_path", **bag_rep)
     check(bag_rep["launches"]["embedding_bag"] == bag_rep["calls"],
           "embedding_bag did not launch on every call of its path")
     torch.cuda.empty_cache()
 
-    lm_rep = lm_path(torch, dev)
+    from repro_torch.configs import (moonshot_v1_16b_a3b, qwen3_14b,
+                                     qwen3_moe_235b_a22b)
+    lm_rep = lm_path(torch, dev, qwen3_14b.config(attn_impl="flash"))
     emit("lm_main_path", **lm_rep)
     torch.cuda.empty_cache()
+
+    moe_reps = {}
+    for tag, cfg, reduced in (
+            ("moonshot", moonshot_v1_16b_a3b.config(attn_impl="flash"),
+             None),
+            ("qwen3_moe", dataclasses.replace(
+                qwen3_moe_235b_a22b.config(attn_impl="flash"), n_layers=4),
+             {"n_layers": "94 -> 4: 235093610496 parameters (470 GB in "
+                          "bf16) do not fit one 80 GB card; width, "
+                          "experts and heads are full"})):
+        rep = lm_path(torch, dev, cfg, steps=16, graph_reps=4,
+                      reduced=reduced)
+        emit("moe_lm_path", **rep)
+        moe_reps[tag] = rep
+        torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     lm_cmp = lm_card_vs_cpu(torch, dev)
     emit("lm_card_vs_cpu", seconds=time.perf_counter() - t0, **lm_cmp)
 
+    t0 = time.perf_counter()
+    mind_rep = mind_path(torch, dev)
+    emit("mind_path", seconds=time.perf_counter() - t0, **mind_rep)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mind_cmp = mind_card_vs_cpu(torch, dev)
+    emit("mind_card_vs_cpu", seconds=time.perf_counter() - t0, **mind_cmp)
+
     # hash_probe: the insert entry's launches, the form its entry times;
-    # all three entries' launches stand beside them
+    # all three entries' launches stand beside them.  flash and the bag:
+    # the launches of every path that runs them, each path counted from 0
+    flash_by_path = {"qwen3_14b": lm_rep["launches"]["flash_attention"],
+                     **{k: r["launches"]["flash_attention"]
+                        for k, r in moe_reps.items()}}
+    bag_by_path = {"mind_" + k: mind_rep[k]["launches"]["embedding_bag"]
+                   for k in ("serve_p99", "retrieval_cand")}
+    bag_by_path["bag_path"] = bag_rep["launches"]["embedding_bag"]
+    by_path = {"flash_attention": flash_by_path,
+               "embedding_bag": bag_by_path,
+               "frontier_min": {"baselines": {
+                   k: base_rep[k]["launches"]["frontier_min"]
+                   for k in BASELINE_RUNS}},
+               "hash_probe": {"baselines": {
+                   k: base_rep[k]["launches"]["hash_probe"]
+                   for k in BASELINE_RUNS}}}
     launches = {"frontier_min": main_rep["launches"]["frontier_min"],
                 "hash_probe": main_rep["hash_probe_launches"]["insert"],
                 "bool_matmul": dense_rep["launches"]["bool_matmul"],
-                "flash_attention": lm_rep["launches"]["flash_attention"],
-                "embedding_bag": bag_rep["launches"]["embedding_bag"]}
+                "flash_attention": sum(flash_by_path.values()),
+                "embedding_bag": sum(bag_by_path.values())}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name]["source"],
              replaces=KERNELS[name]["replaces"], launches=launches[name],
@@ -1993,6 +2247,10 @@ def main() -> int:
              shape=kern[name]["shape"],
              **({"launches_by_entry": main_rep["hash_probe_launches"]}
                 if name == "hash_probe" else {}),
+             **({"launches_by_path": by_path[name]} if name in by_path
+                else {}),
+             **({"moe_shapes": kern["flash_attention_moe"]}
+                if name == "flash_attention" else {}),
              **({"lanes": dict(ten["kernels"][name],
                                launches=ten["lane_launches"][name])}
                 if name in ten["kernels"] else {}))

@@ -1,5 +1,5 @@
-"""Carry a graph state and its config, or an LM's weights and config,
-between the JAX package and the port.
+"""Carry a graph state and its config, an LM's weights and config, or
+MIND's, between the JAX package and the port.
 
 The state is handed over as a flat dict of numpy arrays (the JAX
 ``GraphState`` leaves, with the edge table's columns as ``src``, ``dst``
@@ -17,7 +17,9 @@ import torch
 
 from repro_torch.core import edge_table as et
 from repro_torch.core import graph_state as gs
+from repro_torch.models import moe
 from repro_torch.models import transformer as tf
+from repro_torch.models.recsys import mind
 
 # numpy dtype of every leaf, as the JAX package stores it
 FIELDS = {"v_alive": np.bool_, "ccid": np.int32, "src": np.int32,
@@ -62,8 +64,10 @@ def state_to_numpy(state: gs.GraphState) -> Dict[str, np.ndarray]:
 # ------------------------------------------------------------------ LM ---
 # The LM's weights are handed over as the JAX params pytree in numpy:
 # 'embed', 'ln_f', optional 'lm_head', and 'layers' whose leaves are stacked
-# on a leading [L] axis.  bf16 leaves (numpy's ml_dtypes bfloat16) are read
-# through float32, which holds them exactly, and handed back as float32.
+# on a leading [L] axis (an MoE layer's 'moe' subtree too: router [L, D, E],
+# w_gate / w_up [L, E, D, F], w_down [L, E, F, D], optional 'shared').
+# bf16 leaves (numpy's ml_dtypes bfloat16) are read through float32, which
+# holds them exactly, and handed back as float32.
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -83,16 +87,25 @@ def lm_config_to_dict(cfg: tf.LMConfig) -> Dict:
 
 
 def lm_config_from_dict(d: Dict) -> tf.LMConfig:
+    """An LMConfig from ``dataclasses.asdict`` of either package's (the
+    MoE config nested as a dict)."""
     d = dict(d)
     d["dtype"] = _DTYPES[_dtype_name(d["dtype"])]
+    if isinstance(d.get("moe"), dict):
+        d["moe"] = moe.MoEConfig(**d["moe"])
     return tf.LMConfig(**d)
 
 
-def _tensor(a, cfg: tf.LMConfig, device) -> torch.Tensor:
+def _tensor(a, cfg, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         a = a.astype(np.float32)
     return torch.from_numpy(np.array(a)).to(device=device, dtype=cfg.dtype)
+
+
+def _arr(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def lm_params_from_numpy(tree: Dict, cfg: tf.LMConfig,
@@ -110,16 +123,37 @@ def lm_params_from_numpy(tree: Dict, cfg: tf.LMConfig,
 
 def lm_params_to_numpy(params: tf.Params) -> Dict:
     """The JAX params pytree layout, layers stacked on [L], as numpy."""
-    def arr(t):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-
     def stack(layers):
         first = layers[0]
         return {k: stack([ly[k] for ly in layers]) if isinstance(v, dict)
-                else np.stack([arr(ly[k]) for ly in layers])
+                else np.stack([_arr(ly[k]) for ly in layers])
                 for k, v in first.items()}
 
-    out = {k: arr(v) for k, v in params.items() if k != "layers"}
+    out = {k: _arr(v) for k, v in params.items() if k != "layers"}
     out["layers"] = stack(params["layers"])
     return out
+
+
+# ---------------------------------------------------------------- MIND ---
+# MIND's params are five flat arrays in both packages: item_embed [N, D],
+# profile_embed [P, D], S [D, D], b_init [L, K] and proj [2D, D].
+
+def mind_config_to_dict(cfg: mind.MINDConfig) -> Dict:
+    d = dataclasses.asdict(cfg)
+    d["dtype"] = _dtype_name(cfg.dtype)
+    return d
+
+
+def mind_config_from_dict(d: Dict) -> mind.MINDConfig:
+    d = dict(d)
+    d["dtype"] = _DTYPES[_dtype_name(d["dtype"])]
+    return mind.MINDConfig(**d)
+
+
+def mind_params_from_numpy(tree: Dict, cfg: mind.MINDConfig,
+                           device=gs.DEFAULT_DEVICE) -> mind.Params:
+    return {k: _tensor(v, cfg, device) for k, v in tree.items()}
+
+
+def mind_params_to_numpy(params: mind.Params) -> Dict:
+    return {k: _arr(v) for k, v in params.items()}

@@ -1,11 +1,13 @@
-"""Architecture registry of the port: the dense LM archs and the paper's
-SMSCC engine config.  ``get(name)`` returns the module; each exposes
-FAMILY and config(), and the LM archs also SHAPES and smoke_config()."""
+"""Architecture registry of the port: the LM archs (dense and MoE), MIND
+and the paper's SMSCC engine config.  ``get(name)`` returns the module;
+each exposes FAMILY, SHAPES and config(), and the LM archs and MIND also
+smoke_config()."""
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ["h2o_danube_3_4b", "qwen3_14b", "gemma3_12b", "smscc"]
+ARCHS = ["moonshot_v1_16b_a3b", "qwen3_moe_235b_a22b", "h2o_danube_3_4b",
+         "qwen3_14b", "gemma3_12b", "mind", "smscc"]
 
 
 def get(name: str):

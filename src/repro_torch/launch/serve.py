@@ -1,5 +1,5 @@
-"""Serving driver for the port: batched LM decode, or the paper's streaming
-SCC service.
+"""Serving driver for the port: batched LM decode, MIND scoring, or the
+paper's streaming SCC service.
 
     python -m repro_torch.launch.serve --steps 64
     python -m repro_torch.launch.serve --steps 8 --device cpu
@@ -10,6 +10,9 @@ SCC service.
     python -m repro_torch.launch.serve --tenants 4 --steps 8 --dir /tmp/t \
         --device cpu
     python -m repro_torch.launch.serve --arch qwen3-14b --device cpu --steps 4
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
+        --device cpu --steps 2
+    python -m repro_torch.launch.serve --arch mind --device cpu --steps 4
 
 ``--arch smscc`` (the default): a typed GraphClient update stream with
 SameSCC / Reachable query batches between chunks, over an SCCService
@@ -18,10 +21,11 @@ N reader threads over one shared broker, and ``--replicas N --dir D``
 makes the store durable (a WAL-backed writer in ``D``) and serves the
 readers from N replicas tailing its log; ``--tenants N`` serves N
 independent graphs behind one lane-batched engine and admission queue
-(with ``--dir D``, each tenant durable under ``D/tenants``).  An LM arch:
-the arch's smoke config with random weights serves one batch of prompts,
-prefill then greedy decode.  Runs on ``cuda`` unless ``--device`` says
-otherwise.
+(with ``--dir D``, each tenant durable under ``D/tenants``).  An LM arch
+(dense or MoE): the arch's smoke config with random weights serves one
+batch of prompts, prefill then greedy decode.  ``--arch mind``: MIND's
+smoke config scores ``--steps`` requests of 32 users x 512 candidates.
+Runs on ``cuda`` unless ``--device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from repro_torch.core import graph_state as gs
 from repro_torch.core.service import SCCService
 from repro_torch.launch import stream
 from repro_torch.models import transformer as tf
+from repro_torch.models.recsys import mind
 
 
 def serve_smscc(steps: int, nv: int = 2048, chunk: int = 256,
@@ -269,6 +274,65 @@ def _graph_step_s(params, cache, tok, cfg: tf.LMConfig, reps: int) -> float:
     return start.elapsed_time(end) / reps / 1e3
 
 
+def serve_mind(cfg: mind.MINDConfig, steps: int = 4, *, batch: int = 32,
+               n_cand: int = 512, top_k: int = 0,
+               device: str = gs.DEFAULT_DEVICE, seed: int = 0) -> Dict:
+    """Score ``steps`` requests, each ``batch`` users (behavior and
+    profile ids) against ``n_cand`` candidates apiece
+    (``mind.serve_score``), or with ``top_k`` > 0 retrieve each user's
+    ``top_k`` best (``mind.retrieve_topk``).  Weights are random, drawn on
+    ``device`` from a generator seeded with ``seed``; the requests come
+    from numpy, as the reference draws them (ids in [-1, V), candidates in
+    [0, n_items)), all made and moved before the clock starts.
+
+    Returns a report: per-request seconds (each ends in a synchronise)
+    with their p50 / p99, scores/s over the whole run, peak device bytes
+    (None on the CPU), whether every output is finite, and ``last``: the
+    last request's scores [batch, n_cand], or (values, indices)
+    [batch, top_k].
+    """
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    params = mind.init(cfg, torch.Generator(device=dev).manual_seed(seed),
+                       dev)
+    rng = np.random.default_rng(seed)
+
+    def ids(lo, hi, shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape)
+                                .astype(np.int32)).to(dev)
+
+    requests = [{"behavior": ids(-1, cfg.n_items, (batch, cfg.seq_len)),
+                 "profile": ids(-1, cfg.profile_vocab,
+                                (batch, cfg.profile_len)),
+                 "candidates": ids(0, cfg.n_items, (batch, n_cand))}
+                for _ in range(steps)]
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    lat, finite, out = [], True, None
+    for req in requests:
+        t0 = time.perf_counter()
+        out = (mind.retrieve_topk(params, req, cfg, k=top_k) if top_k
+               else mind.serve_score(params, req, cfg))
+        _sync(dev)
+        lat.append(time.perf_counter() - t0)
+        scores = out[0] if top_k else out
+        finite = finite and bool(torch.isfinite(scores).all())
+    total = sum(lat)
+    return {
+        "arch": cfg.name, "device": str(dev), "requests": steps,
+        "batch": batch, "n_cand": n_cand, "top_k": top_k,
+        "init_s": init_s, "seconds": total, "latency_s": lat,
+        "latency_s_p50": float(np.percentile(lat, 50)) if lat else None,
+        "latency_s_p99": float(np.percentile(lat, 99)) if lat else None,
+        "scores_per_s": steps * batch * n_cand / total if total else None,
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None),
+        "scores_finite": finite, "last": out,
+    }
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smscc")
@@ -295,6 +359,11 @@ def main():
               f"batch {rep['batch']} in {rep['decode_s']:.3f}s "
               f"({rep['decode_tok_per_s']} tok/s) on {rep['device']}")
         print("sample:", rep["tokens"][0][:16])
+    elif mod.FAMILY == "recsys":
+        rep = serve_mind(mod.smoke_config(), args.steps, device=args.device)
+        print(f"scored {rep['requests']} requests x batch {rep['batch']} x "
+              f"{rep['n_cand']} candidates in {rep['seconds']:.3f}s "
+              f"({rep['scores_per_s']:.0f} scores/s) on {rep['device']}")
     elif args.tenants > 0:
         serve_tenants(args.steps, args.tenants, directory=args.directory,
                       device=args.device)

@@ -1,18 +1,19 @@
-"""Decoder-only LM, serving side: the dense archs of
-``repro.models.transformer`` (qwen3-14b, h2o-danube-3-4b, gemma3-12b).
+"""Decoder-only LM, serving side: the archs of ``repro.models.transformer``
+(qwen3-14b, h2o-danube-3-4b, gemma3-12b, and the MoE archs
+moonshot-v1-16b-a3b and qwen3-moe-235b-a22b).
 
 GQA with separate ``n_kv_heads``, explicit ``head_dim``, optional qk-norm,
 sliding-window attention, a local:global layer pattern, RoPE, RMSNorm, a
-SwiGLU FFN and a tied or untied vocab head.  Parameters are a plain dict,
-as in the reference, with the layers as a list of per-layer dicts instead
-of arrays stacked on a leading [L] axis; weights keep the reference's
-``x @ W`` ([in, out]) layout.
+SwiGLU FFN or an MoE FFN (``models/moe.py``) and a tied or untied vocab
+head.  Parameters are a plain dict, as in the reference, with the layers
+as a list of per-layer dicts instead of arrays stacked on a leading [L]
+axis; weights keep the reference's ``x @ W`` ([in, out]) layout.
 
 Entry points: ``prefill`` (build the KV cache, return the last logits) and
 ``decode_step`` (one token against the cache).  With ``attn_impl="flash"``
 prefill's attention runs the flash kernel, under the reference's condition:
 no KV override (decode keeps the plain path) and no local:global pattern.
-Training (``loss_fn``, remat) and MoE layers are not ported yet.
+Training (``loss_fn``, remat) is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa
-from repro_torch.models import common
+from repro_torch.models import common, moe as moe_lib
 
 NEG_INF = -1e30
 ATTN_IMPLS = ("xla", "flash")
@@ -46,7 +47,7 @@ class LMConfig:
     local_global: int = 0    # N local layers per 1 global layer; 0=all global
     rope_theta: float = 1e4
     tie_embeddings: bool = True
-    moe: Optional[Any] = None  # must stay None: MoE is not ported yet
+    moe: Optional[moe_lib.MoEConfig] = None
     dtype: torch.dtype = torch.float32
     remat: str = "none"      # training only; no effect on serving
     attn_impl: str = "xla"   # 'xla' | 'flash' (flash needs uniform windows)
@@ -55,8 +56,10 @@ class LMConfig:
     scan_unroll: bool = False  # the layer loop is a Python loop here
 
     def __post_init__(self):
-        if self.moe is not None:
-            raise ValueError("MoE layers are not ported (models/moe.py)")
+        if self.moe is not None and not isinstance(self.moe,
+                                                   moe_lib.MoEConfig):
+            raise ValueError(f"moe is a {type(self.moe).__name__}, not a "
+                             f"models.moe.MoEConfig")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} is not one of "
                              f"{ATTN_IMPLS}")
@@ -71,9 +74,24 @@ class LMConfig:
                 for l in range(self.n_layers)]
 
     def n_params(self) -> int:
+        return self._count(self.moe.n_experts if self.moe else 0)
+
+    def n_active_params(self) -> int:
+        """Parameters touched per token (MoE: only routed experts)."""
+        return self._count(self.moe.top_k if self.moe else 0)
+
+    def _count(self, routed: int) -> int:
+        """The reference's count, with ``routed`` experts' FFNs a layer
+        (the router and shared experts always)."""
         d, dh = self.d_model, self.head_dim
         attn = d * dh * (self.n_heads * 2 + self.n_kv_heads * 2)
-        per_layer = attn + 3 * d * self.d_ff + 2 * d
+        m = self.moe
+        if m is not None:
+            ffn = (d * routed * m.d_ff * 3 + d * m.n_experts
+                   + d * m.d_ff * m.n_shared_experts * 3)
+        else:
+            ffn = 3 * d * self.d_ff
+        per_layer = attn + ffn + 2 * d
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + emb + d
 
@@ -99,8 +117,12 @@ def _layer_init(gen: torch.Generator, cfg: LMConfig, device) -> Params:
          "wo": dense((cfg.n_heads * dh, d))}
     if cfg.qk_norm:
         p["q_norm"], p["k_norm"] = zeros(dh), zeros(dh)
-    p["ffn"] = {"w_gate": dense((d, cfg.d_ff)), "w_up": dense((d, cfg.d_ff)),
-                "w_down": dense((cfg.d_ff, d))}
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.init(cfg.moe, gen, dtype=cfg.dtype, device=device)
+    else:
+        p["ffn"] = {"w_gate": dense((d, cfg.d_ff)),
+                    "w_up": dense((d, cfg.d_ff)),
+                    "w_down": dense((cfg.d_ff, d))}
     return p
 
 
@@ -150,8 +172,8 @@ KVOverride = Callable[[torch.Tensor, torch.Tensor],
 
 def _layer_fwd(cfg: LMConfig, p: Params, x, positions, window: int,
                kv_override: Optional[KVOverride] = None):
-    """One decoder layer.  x: [B,S,D].  Returns (y, (k, v))."""
-    b, s, _ = x.shape
+    """One decoder layer.  x: [B,S,D].  Returns (y, (k, v), aux_loss)."""
+    b, s, d = x.shape
     dh = cfg.head_dim
     h = common.rms_norm(x, p["ln1"])
     q = (h @ p["wq"]).view(b, s, cfg.n_heads, dh)
@@ -176,10 +198,15 @@ def _layer_fwd(cfg: LMConfig, p: Params, x, positions, window: int,
         out = _attention_xla(q, k_all, v_all, positions, pos_k, window)
     x = x + out.reshape(b, s, cfg.n_heads * dh) @ p["wo"]
     h = common.rms_norm(x, p["ln2"])
-    f = p["ffn"]
-    y = (torch.nn.functional.silu(h @ f["w_gate"]) * (h @ f["w_up"])) \
-        @ f["w_down"]
-    return x + y, (k, v)
+    if cfg.moe is not None:
+        y, aux = moe_lib.apply(p["moe"], h.reshape(b * s, d), cfg.moe)
+        y = y.view(b, s, d)
+    else:
+        f = p["ffn"]
+        y = (torch.nn.functional.silu(h @ f["w_gate"]) * (h @ f["w_up"])) \
+            @ f["w_down"]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, (k, v), aux
 
 
 def _logits(cfg: LMConfig, params: Params, x) -> torch.Tensor:
@@ -204,7 +231,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig,
     x = params["embed"][tokens.long()]
     positions = torch.arange(s, device=dev).expand(b, s)
     for l, (p, window) in enumerate(zip(params["layers"], cfg.windows)):
-        x, (k, v) = _layer_fwd(cfg, p, x, positions, window)
+        x, (k, v), _ = _layer_fwd(cfg, p, x, positions, window)
         cache["k"][l, :, :s] = k
         cache["v"][l, :, :s] = v
     x = common.rms_norm(x[:, -1], params["ln_f"])
@@ -231,7 +258,7 @@ def decode_step(params: Params, cache: Dict, tok: torch.Tensor,
     # unwritten slots are masked through their key position
     pos_k = torch.where(pos_k <= pos, pos_k, 2 ** 30).expand(b, cache_len)
     for l, (p, window) in enumerate(zip(params["layers"], cfg.windows)):
-        x, _ = _layer_fwd(cfg, p, x, positions, window,
+        x, _, _ = _layer_fwd(cfg, p, x, positions, window,
                           _cache_writer(cache["k"][l], cache["v"][l], slot,
                                         pos_k))
     x = common.rms_norm(x[:, 0], params["ln_f"])

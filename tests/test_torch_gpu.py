@@ -595,3 +595,119 @@ def test_durable_writer_replica_and_recovery_on_card_match_cpu(cuda,
     assert runs["cpu"][0] == runs["cuda"][0]
     assert states_equal(runs["cpu"][1], runs["cuda"][1])
     assert runs["cpu"][2] == runs["cuda"][2]
+
+
+# the MoE archs' attention: moonshot-v1-16b-a3b (16 heads, 16 kv heads: no
+# grouping) and qwen3-moe-235b-a22b (64 heads on 4 kv heads: 16:1), D 128
+@pytest.mark.parametrize("h,hkv", [(16, 16), (64, 4)])
+def test_flash_bf16_moe_heads(cuda, h, hkv):
+    q, k, v = _bf16_qkv(cuda, 2, h, hkv, 700, 128, h)
+    got = aops.mha(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), aref.mha(q, k, v).float(),
+                               rtol=3e-2, atol=3e-2)
+    assert _bf16_margin(q, k, v, True, 0) <= 1.0
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    torch.testing.assert_close(aops.mha(q32, k32, v32),
+                               aref.mha(q32, k32, v32), rtol=2e-5, atol=2e-5)
+
+
+def test_embedding_bag_kernel_mind_profile(cuda):
+    """MIND's profile bag as its serving path calls it: 8192 x 64 table,
+    512 bags of 8 ids from [-1, 8192), mean."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    table = torch.randn(8192, 64, device=cuda, generator=g)
+    ids = torch.randint(-1, 8192, (512, 8), device=cuda, generator=g,
+                        dtype=torch.int32)
+    ids[:4] = -1  # bags with no id
+    torch.testing.assert_close(
+        eops.embedding_bag(table, ids, mode="mean"),
+        eref.embedding_bag(table, ids, mode="mean"), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["moonshot_v1_16b_a3b",
+                                  "qwen3_moe_235b_a22b"])
+def test_moe_lm_on_card_matches_cpu(cuda, arch):
+    """The smoke config in f32 (TF32 off), one set of weights on both
+    devices: prefill and teacher-forced decode logits within 2e-4."""
+    import importlib
+
+    from repro_torch import carry
+    from repro_torch.models import transformer as ttf
+
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = mod.smoke_config(attn_impl="flash")
+    tree = carry.lm_params_to_numpy(
+        ttf.init(cfg, torch.Generator().manual_seed(0), "cpu"))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 20)).astype(np.int32))
+    runs, fed = [], []
+    for dev in (torch.device("cpu"), cuda):
+        params = carry.lm_params_from_numpy(tree, cfg, dev)
+        cache, last = ttf.prefill(params, toks.to(dev), cfg, cache_len=24)
+        seq = [last.cpu()]
+        for i in range(4):
+            if dev.type == "cpu":
+                fed.append(seq[-1].argmax(-1).to(torch.int32))
+            logits, cache = ttf.decode_step(params, cache, fed[i].to(dev),
+                                            cfg)
+            seq.append(logits.cpu())
+        runs.append(torch.stack(seq))
+    torch.testing.assert_close(runs[1], runs[0], rtol=2e-4, atol=2e-4)
+
+
+def test_mind_on_card_matches_cpu(cuda):
+    """MIND's smoke config, one set of weights on both devices: interests
+    and scores within 1e-5, the profile bag on the kernel."""
+    from repro_torch import carry
+    from repro_torch.configs import mind as mind_cfg
+    from repro_torch.models.recsys import mind
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = mind_cfg.smoke_config()
+    tree = carry.mind_params_to_numpy(
+        mind.init(cfg, torch.Generator().manual_seed(0), "cpu"))
+    rng = np.random.default_rng(0)
+    batch = {"behavior": rng.integers(-1, cfg.n_items, (16, cfg.seq_len)),
+             "profile": rng.integers(-1, cfg.profile_vocab,
+                                     (16, cfg.profile_len)),
+             "candidates": rng.integers(0, cfg.n_items, (16, 300))}
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        params = carry.mind_params_from_numpy(tree, cfg, dev)
+        b = {k: torch.from_numpy(v.astype(np.int32)).to(dev)
+             for k, v in batch.items()}
+        before = eops.embedding_bag.launches
+        u = mind.interests(params, b["behavior"], b["profile"], cfg)
+        scores = mind.serve_score(params, b, cfg)
+        if dev.type == "cuda":
+            assert eops.embedding_bag.launches == before + 2
+        outs.append((u.cpu(), scores.cpu()))
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_baselines_on_card_match_cpu(cuda):
+    """The three baselines from one booted state on both devices: states
+    and acks equal."""
+    from repro_torch import carry
+    from repro_torch.configs import smscc
+    from repro_torch.core import baselines, dynamic
+    from repro_torch.launch import workload
+
+    cfg = smscc.config(n_vertices=512, edge_capacity=2048)
+    rng = np.random.default_rng(4)
+    src = np.repeat(np.arange(512, dtype=np.int32), 2)
+    dst = rng.integers(0, 512, src.shape[0]).astype(np.int32)
+    boot = carry.state_to_numpy(dynamic.recompute(
+        tgs.from_arrays(cfg, src, dst, device="cpu"), cfg))
+    ops = workload.op_stream(512, 48, step=0, add_frac=0.7, seed=4)
+    for name in ("sequential_apply", "coarse_apply",
+                 "static_per_batch_apply"):
+        fn = getattr(baselines, name)
+        want_st, want_ok = fn(carry.state_from_numpy(boot, "cpu"), ops, cfg)
+        got_st, got_ok = fn(carry.state_from_numpy(boot, cuda), ops, cfg)
+        assert torch.equal(got_ok.cpu(), want_ok), name
+        want = carry.state_to_numpy(want_st)
+        for k, v in carry.state_to_numpy(got_st).items():
+            np.testing.assert_array_equal(v, want[k], err_msg=f"{name} {k}")

@@ -242,13 +242,22 @@ def _imports(path: Path):
 def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert [p.name for p in examples] == [
+        "community_detection_torch.py", "dynamic_scc_serving_torch.py",
+        "quickstart_torch.py"]
+    files += examples
+    files.append(ROOT / "scripts" / "profile_lm_torch.py")
     assert len(files) > 20
     port = ROOT / "src" / "repro_torch"
     for rel in ("ckpt/checkpoint.py", "ckpt/oplog.py", "ckpt/durable.py",
                 "core/replicas.py", "fault/inject.py", "ha/lease.py",
                 "launch/replica.py", "launch/stream.py", "launch/chaos.py",
                 "tenancy/engine.py", "tenancy/multi_service.py",
-                "tenancy/queue.py"):
+                "tenancy/queue.py", "core/baselines.py", "models/moe.py",
+                "models/recsys/mind.py", "graph/segment_ops.py",
+                "configs/mind.py", "configs/moonshot_v1_16b_a3b.py",
+                "configs/qwen3_moe_235b_a22b.py"):
         assert port / rel in files, rel
     for path in files:
         for mod in _imports(path):
