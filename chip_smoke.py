@@ -18,7 +18,8 @@ Phases, each printing one line or more:
    bf16 kernel against the f32 answer at the main shapes and at four
    band-sensitive shapes, flash also at the MoE archs' prefill layers,
    moonshot's 16 heads on 16 kv heads and qwen3-moe's 64 on 4; 1e-5 for
-   the embedding bag, also at MIND's profile bag), with CUDA-event
+   the embedding bag, also at MIND's profile bag, and at its training
+   shape forward and backward), with CUDA-event
    times: the kernel and one library call as device time per call (calls
    captured in a CUDA graph and replayed), the kernel's wrapper called back
    to back (``host_ms``: device time plus the host's launch cost), the
@@ -104,10 +105,36 @@ Phases, each printing one line or more:
    scores/s and per-request latency) and one retrieval_cand request (1
    user, 10^6 candidates, top 100), the profile bag's kernel once a
    request; then MIND's smoke config card vs CPU, scores within 1e-5;
-13. the kernels line (JSON; frontier_min and hash_probe also carry their
+13. LM training (after phase 12, ``train_lm_path``): qwen3-14b at full
+   width (d 5120, 40 heads on 8, d_ff 17408, vocab 151936, qk-norm, bf16,
+   random weights from a seeded generator on the card), depth cut 40 ->
+   4 and batch to 2 x 4096 tokens (``reduced`` says why), chunked
+   attention and remat ``full`` as the reference's train step sets them,
+   6 steps of the port's Trainer (``launch.train``'s setup, the reference
+   launcher's AdamW) on ``lm_batch`` streams: per-step loss, median step
+   time, tokens/s, peak memory and ``model_flops_share`` (the reference's
+   ``lm_model_flops`` over the median step and 989 TFLOP/s); every loss
+   finite, every leaf's step-1 gradient nonzero, peak under 80 GB;
+14. MIND training (``train_mind_path``): ``configs/mind.py``'s full config
+   at its train_batch of 65536 users, 4 steps: users/s, the time to make
+   a batch apart, peak memory; one bag launch a forward, a nonzero
+   ``profile_embed`` gradient, finite losses;
+15. training card vs CPU (``train_card_vs_cpu``): the qwen3 (chunked,
+   remat full), moonshot (MoE, aux loss on) and MIND smoke configs in f32
+   with TF32 off, one state on both devices through ``carry``: loss within
+   1e-5 relative, every gradient leaf and every parameter after one
+   Trainer step within 2e-4 (MIND's through the bag kernel's forward and
+   its Function's backward);
+16. resume (``train_resume_check``): a bf16 trainer state saved on the
+   card, 3 steps, restored into a trainer built from other weights, the
+   same 3 steps: final params bit-identical;
+17. flash under a gradient (``flash_grad_refusal``): a loss through the
+   flash kernel launches it once a layer and its backward raises;
+18. the kernels line (JSON; frontier_min and hash_probe also carry their
    tenant-row form under ``lanes``; flash and the bag their launches on
    each path under ``launches_by_path``, flash its MoE-shape rows under
-   ``moe_shapes``), the card line, and the device line last.
+   ``moe_shapes``, the bag its training-shape row, forward and backward,
+   under ``train_shape``), the card line, and the device line last.
 
 Any failed check exits non-zero.  Without a CUDA card it exits 1 before
 printing any result.
@@ -116,6 +143,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -885,9 +913,72 @@ def lm_kernel_checks(torch, dev) -> dict:
             library_ms=graph_ms(torch, lambda e=eff: F.embedding_bag(
                 safe_ids, table, mode="sum", per_sample_weights=e), 20),
             bound_ms=b_ms, bound_by=b_by)))
+    out["embedding_bag_train"] = bag_train_row(torch, dev, g, eops, eref)
+    rows.append(out["embedding_bag_train"])
     emit("kernel", name="embedding_bag", rows=rows)
     out["embedding_bag"] = rows[3]  # the MIND serving path's bag
     return out
+
+
+def bag_train_row(torch, dev, g, eops, eref) -> dict:
+    """MIND's profile bag at its training shape (train_batch 65536 users x
+    profile_len 8 ids drawn from the 8192 x 64 table, mean, no padding:
+    ``mind_batch``'s draw): the kernel's forward and the Function's backward
+    (plain torch) against autograd through the plain version, 1e-5; device
+    and host ms of each, their byte bounds (each input read once: the rows
+    the ids name, once each; the dense table gradient written once), and
+    the plain version's and ``F.embedding_bag``'s forward + backward."""
+    import torch.nn.functional as F
+
+    v, d, b, l = 8192, 64, 65536, 8
+    table = torch.randn((v, d), generator=g, device=dev)
+    ids = torch.randint(0, v, (b, l), generator=g, device=dev,
+                        dtype=torch.int32)
+    grad = torch.randn((b, d), generator=g, device=dev)
+    leaf = table.clone().requires_grad_()
+    ids64 = ids.long()
+
+    def fwd():
+        return eops.embedding_bag(table, ids, mode="mean")
+
+    def bwd():
+        return eops.backward(table, ids, "mean", None, grad)
+
+    def grad_of(bag):
+        return torch.autograd.grad(bag(leaf), [leaf], grad)[0]
+
+    port = lambda t: eops.embedding_bag(t, ids, mode="mean")  # noqa: E731
+    plain = lambda t: eref.embedding_bag(t, ids, mode="mean")  # noqa: E731
+    lib = lambda t: F.embedding_bag(ids64, t, mode="mean")  # noqa: E731
+    got, want = fwd(), eref.embedding_bag(table, ids, mode="mean")
+    d_got, d_want = grad_of(port), grad_of(plain)
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+          "embedding_bag at MIND's training shape disagrees")
+    check(torch.allclose(d_got, d_want, rtol=1e-5, atol=1e-5),
+          "embedding_bag's backward disagrees with autograd of the plain "
+          "version")
+    rows_read = int(torch.unique(ids).numel())
+    b_ms, b_by = bound_ms(ids.numel() * 4 + rows_read * d * 4 + b * d * 4)
+    bb_ms, bb_by = bound_ms(b * d * 4 + ids.numel() * 4 + v * d * 4)
+    row = dict(
+        shape=f"train mean: V={v} D={d} B={b} L={l} nnz={ids.numel()} "
+              f"rows_read={rows_read}",
+        tolerance=1e-5, max_abs_err=float((got - want).abs().max()),
+        backward_max_abs_err=float((d_got - d_want).abs().max()),
+        ms=graph_ms(torch, fwd, 20), host_ms=cuda_ms(torch, fwd, 20),
+        plain_ms=cuda_ms(torch, lambda: plain(table), 20),
+        library_ms=graph_ms(torch, lambda: lib(table), 20),
+        bound_ms=b_ms, bound_by=b_by,
+        backward_ms=graph_ms(torch, bwd, 20),
+        backward_host_ms=cuda_ms(torch, bwd, 20),
+        backward_bound_ms=bb_ms, backward_bound_by=bb_by,
+        fwd_bwd_host_ms=cuda_ms(torch, lambda: grad_of(port), 20),
+        plain_fwd_bwd_ms=cuda_ms(torch, lambda: grad_of(plain), 20),
+        library_fwd_bwd_ms=cuda_ms(torch, lambda: grad_of(lib), 20))
+    check(row["backward_ms"] >= bb_ms,
+          f"{row['shape']}: backward {row['backward_ms']} ms is below its "
+          f"bound")
+    return checked_row(row)
 
 
 def flash_f32_checks(torch, aops, aref, bufs, got, window) -> dict:
@@ -1320,6 +1411,278 @@ def mind_card_vs_cpu(torch, dev) -> dict:
     return {"tolerance": tol, "max_abs_err": err,
             "scores_compared": cs.numel(),
             "topk_indices_equal": bool(torch.equal(gi, ci))}
+
+
+# ------------------------------------------------------ training phases ---
+
+def launcher_opt(steps: int) -> dict:
+    """The reference launcher's AdamW settings (repro/launch/train.py)."""
+    return dict(lr=1e-3, warmup_steps=10, total_steps=steps)
+
+
+def lm_model_flops(cfg, batch: int, seq: int) -> int:
+    """Useful FLOPs of one training step, by the reference's formula
+    (``repro/launch/steps.py`` ``lm_model_flops``, kind ``train``, copied):
+    6 x active params x tokens, plus causal attention's QK^T and PV (2
+    matmuls, 2 flops a MAC, ~seq x eff / 2 pairs) x 3 for the forward and
+    the backward."""
+    attn = 0
+    for w in cfg.windows:
+        eff = seq if w == 0 else min(seq, w)
+        attn += 3 * 4 * batch * cfg.n_heads * cfg.head_dim * (seq * eff // 2)
+    return 6 * cfg.n_active_params() * batch * seq + attn
+
+
+def grads_nonzero(torch, trainer, batch) -> dict:
+    """Key path -> whether step 1's gradient of that leaf is nonzero,
+    through the trainer's own forward and backward (one host read)."""
+    from repro_torch.tree import leaves
+
+    _, _, grads = trainer.value_and_grad(trainer.state["params"], batch)
+    named = list(leaves(grads))
+    flags = torch.stack([g.ne(0).any() for _, g in named]).tolist()
+    return {k: bool(f) for (k, _), f in zip(named, flags)}
+
+
+def make_trainer(setup, steps, ckpt_dir=None):
+    """A Trainer over ``setup`` = (params, loss_fn, data_fn) with the
+    reference launcher's AdamW, logging every step."""
+    from repro_torch.optim import optimizer
+    from repro_torch.train import trainer
+
+    params, loss_fn, data_fn = setup
+    return trainer.Trainer(
+        loss_fn, params, optimizer.AdamWConfig(**launcher_opt(steps)),
+        trainer.TrainerConfig(total_steps=steps, log_every=1,
+                              ckpt_dir=ckpt_dir, ckpt_every=10 ** 9),
+        data_fn)
+
+
+def train_lm_path(torch, dev, cfg, *, batch=2, seq=4096, steps=6,
+                  reduced=None) -> dict:
+    """``cfg`` trained by the port's Trainer from ``launch.train``'s setup
+    (random weights from SEED on the card, ``lm_batch`` streams): step 1's
+    gradients checked leaf by leaf, then ``steps`` steps counted from 0."""
+    from repro_torch import kernels
+    from repro_torch.launch import train as ltrain
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    setup = ltrain._lm_setup(cfg, batch, seq, dev, seed=SEED)
+    t = make_trainer(setup, steps)
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    nonzero = grads_nonzero(torch, t, setup[2](0))
+    kernels.reset_launch_counts()
+    log = t.run()
+    launches = kernels.launch_counts()
+    losses = [m["loss"] for _, m in log]
+    med = sorted(t.step_times)[len(t.step_times) // 2]
+    flops = lm_model_flops(cfg, batch, seq)
+    rep = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model,
+           "n_params": sum(p.numel() for p in tree_leaves(setup[0])),
+           "dtype": str(cfg.dtype).removeprefix("torch."),
+           "attn_impl": cfg.attn_impl, "remat": cfg.remat, "batch": batch,
+           "seq": seq, "steps": steps, "init_s": init_s, "losses": losses,
+           "grad_norm": [m["grad_norm"] for _, m in log],
+           "lr": [m["lr"] for _, m in log], "step_times_s": t.step_times,
+           "median_step_s": med, "tokens_per_s": batch * seq / med,
+           "model_flops_per_step": flops,
+           "model_flops_share": flops / med / BF16_FLOPS,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+           "grad_leaves": len(nonzero),
+           "zero_grad_leaves": [k for k, f in nonzero.items() if not f],
+           "launches": launches, "stragglers": t.straggler_events}
+    if reduced:
+        rep["reduced"] = reduced
+    check(all(math.isfinite(x) for x in losses),
+          f"{cfg.name} training: a loss is not finite: {losses}")
+    check(not rep["zero_grad_leaves"],
+          f"{cfg.name} training: zero step-1 gradients in "
+          f"{rep['zero_grad_leaves']}")
+    check(rep["peak_mem_bytes"] < 80e9,
+          f"{cfg.name} training: peak {rep['peak_mem_bytes']} B")
+    return rep
+
+
+def train_mind_path(torch, dev, *, batch=65536, steps=4) -> dict:
+    """``configs/mind.py``'s full config trained by the port's Trainer
+    (``launch.train``'s setup, ``mind_batch`` streams at the config's
+    train_batch): step 1's gradients checked leaf by leaf, then ``steps``
+    steps counted from 0, one bag launch a forward.  Making a batch is
+    timed apart from the steps."""
+    from repro_torch import kernels
+    from repro_torch.configs import mind
+    from repro_torch.launch import train as ltrain
+
+    cfg = mind.config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, loss_fn, data_fn = ltrain._mind_setup(cfg, batch, dev, seed=SEED)
+    data_s = []
+
+    def timed_data(step):
+        t0 = time.perf_counter()
+        b = data_fn(step)
+        sync(torch, dev)
+        data_s.append(time.perf_counter() - t0)
+        return b
+
+    t = make_trainer((params, loss_fn, timed_data), steps)
+    nonzero = grads_nonzero(torch, t, data_fn(0))
+    kernels.reset_launch_counts()
+    log = t.run()
+    launches = kernels.launch_counts()
+    losses = [m["loss"] for _, m in log]
+    med = sorted(t.step_times)[len(t.step_times) // 2]
+    rep = {"n_items": cfg.n_items, "embed_dim": cfg.embed_dim,
+           "profile_vocab": cfg.profile_vocab, "seq_len": cfg.seq_len,
+           "n_neg": cfg.n_neg, "batch": batch, "steps": steps,
+           "losses": losses, "acc": [m["acc"] for _, m in log],
+           "step_times_s": t.step_times, "median_step_s": med,
+           "users_per_s": batch / med, "data_s": data_s,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+           "grad_nonzero": nonzero, "launches": launches}
+    check(all(math.isfinite(x) for x in losses),
+          f"MIND training: a loss is not finite: {losses}")
+    check(all(nonzero.values()) and "d:profile_embed" in nonzero,
+          f"MIND training: zero step-1 gradients: {nonzero}")
+    check(launches["embedding_bag"] == steps,
+          f"MIND training: the bag launched {launches['embedding_bag']} "
+          f"times in {steps} forwards")
+    return rep
+
+
+def train_card_vs_cpu(torch, dev) -> dict:
+    """qwen3-14b's smoke config (chunked attention, remat full),
+    moonshot's (MoE, aux loss on) and MIND's, in f32 with TF32 off, one
+    state on both devices through ``carry``: step 1's loss within 1e-5
+    relative, every gradient leaf and every parameter after one Trainer
+    step within 2e-4.  MIND's profile bag runs the kernel inside
+    ``EmbeddingBagFn`` on the card (its backward plain torch) and the
+    plain version on the CPU."""
+    from repro_torch import carry
+    from repro_torch.configs import mind as mind_cfg
+    from repro_torch.configs import moonshot_v1_16b_a3b, qwen3_14b
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.recsys import mind
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tol = 2e-4
+    out = {"loss_rtol": 1e-5, "tolerance": tol}
+    for cfg in (qwen3_14b.smoke_config(attn_impl="chunked", remat="full"),
+                moonshot_v1_16b_a3b.smoke_config(),
+                mind_cfg.smoke_config()):
+        is_lm = isinstance(cfg, tf.LMConfig)
+        host = (tf.init if is_lm else mind.init)(
+            cfg, torch.Generator().manual_seed(SEED), "cpu")
+        tree = (carry.lm_params_to_numpy(host) if is_lm
+                else carry.mind_params_to_numpy(host))
+        runs = []
+        for d in (torch.device("cpu"), dev):
+            setup = (ltrain._lm_setup(cfg, 4, 32, d) if is_lm
+                     else ltrain._mind_setup(cfg, 64, d))
+            params = (carry.lm_params_from_numpy(tree, cfg, d) if is_lm
+                      else carry.mind_params_from_numpy(tree, cfg, d))
+            t = make_trainer((params,) + setup[1:], 1)
+            before = eops.embedding_bag.launches
+            loss, _, grads = t.value_and_grad(params, setup[2](0))
+            t.run()
+            if d.type == "cuda" and not is_lm:
+                check(eops.embedding_bag.launches - before == 2,
+                      f"{cfg.name}: the bag did not run in the card's "
+                      f"forwards")
+            runs.append((float(loss), [g.cpu() for g in tree_leaves(grads)],
+                         [p.detach().cpu()
+                          for p in tree_leaves(t.state["params"])]))
+        (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = runs
+        g_err = max(float((a - b).abs().max()) for a, b in zip(g_card, g_cpu))
+        p_err = max(float((a - b).abs().max()) for a, b in zip(p_card, p_cpu))
+        out[cfg.name] = {"loss_cpu": l_cpu, "loss_card": l_card,
+                         "grad_max_abs_err": g_err,
+                         "param_max_abs_err": p_err, "leaves": len(g_cpu)}
+        check(abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu),
+              f"{cfg.name}: card loss {l_card} vs CPU {l_cpu}")
+        check(all(torch.allclose(a, b, rtol=tol, atol=tol)
+                  for a, b in zip(g_card, g_cpu)),
+              f"{cfg.name}: card and CPU gradients differ by {g_err}")
+        check(all(torch.allclose(a, b, rtol=tol, atol=tol)
+                  for a, b in zip(p_card, p_cpu)),
+              f"{cfg.name}: card and CPU params after a step differ by "
+              f"{p_err}")
+    return out
+
+
+def train_resume_check(torch, dev, steps=3) -> dict:
+    """A bf16 trainer state (qwen3-14b's smoke width, chunked attention,
+    remat full) saved on the card, ``steps`` steps run; then a trainer
+    built from other weights restores it and runs the same steps: the
+    final params must be bit-identical.  The store lives in a temporary
+    directory, removed afterwards."""
+    import tempfile
+
+    from repro_torch.configs import qwen3_14b
+    from repro_torch.launch import train as ltrain
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(qwen3_14b.smoke_config(
+        attn_impl="chunked", remat="full"), dtype=torch.bfloat16)
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as d:
+        first = make_trainer(ltrain._lm_setup(cfg, 4, 32, dev), steps,
+                             ckpt_dir=d)
+        first.save()
+        first.run()
+        again = make_trainer(ltrain._lm_setup(cfg, 4, 32, dev,
+                                                     seed=SEED + 1),
+                             steps, ckpt_dir=d)
+        restored_step = again.step
+        again.run()
+    want = tree_leaves(first.state["params"])
+    got = tree_leaves(again.state["params"])
+    same = all(a.dtype == b.dtype == torch.bfloat16
+               and torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(want, got))
+    check(restored_step == 0, f"resume: restored step {restored_step}")
+    check(same, "resume: the restored run's bf16 params differ")
+    return {"arch": cfg.name, "dtype": "bfloat16", "steps": steps,
+            "restored_step": restored_step, "leaves": len(want),
+            "bit_identical": same}
+
+
+def flash_grad_refusal(torch, dev) -> dict:
+    """``loss_fn`` through the flash kernel on the card (qwen3-14b's smoke
+    config): the forward launches flash once a layer, the backward must
+    raise."""
+    from repro_torch.configs import qwen3_14b
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.flash_attention import ops as aops
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
+
+    cfg = qwen3_14b.smoke_config(attn_impl="flash")
+    params = tf.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    before = aops.mha.launches
+    loss, _ = tf.loss_fn(params, pipeline.lm_batch(cfg.vocab, 2, 32, step=0,
+                                                   device=dev), cfg)
+    fwd = aops.mha.launches - before
+    try:
+        torch.autograd.grad(loss, leaves)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    check(fwd == cfg.n_layers, f"flash refusal: {fwd} forward launches")
+    check(refused is not None and "chunked" in refused,
+          "flash refusal: a backward through the flash kernel did not "
+          "raise")
+    return {"forward_launches": fwd, "raised": refused}
 
 
 BASELINE_RUNS = ("apply_batch", "sequential_apply", "coarse_apply",
@@ -2214,6 +2577,33 @@ def main() -> int:
     mind_cmp = mind_card_vs_cpu(torch, dev)
     emit("mind_card_vs_cpu", seconds=time.perf_counter() - t0, **mind_cmp)
 
+    t0 = time.perf_counter()
+    full = qwen3_14b.config(attn_impl="chunked", remat="full")
+    depth = 4
+    train_lm = train_lm_path(torch, dev, dataclasses.replace(
+        full, n_layers=depth), reduced={
+            "n_layers": f"{full.n_layers} -> {depth}: the train state is 12 "
+                        f"bytes a parameter (bf16 params and grads, f32 m "
+                        f"and v), {12 * full.n_params()} B at "
+                        f"{full.n_params()} parameters, beyond one 80 GB "
+                        f"card; width, heads and vocab are full",
+            "batch": "256 -> 2 sequences of 4096 tokens (the reference "
+                     "launcher's 256 x 4096 is a pod's batch): f32 logits "
+                     "and their gradient take ~5 GB a sequence"})
+    emit("train_lm", seconds=time.perf_counter() - t0, **train_lm)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_mind = train_mind_path(torch, dev)
+    emit("train_mind", seconds=time.perf_counter() - t0, **train_mind)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_cmp = train_card_vs_cpu(torch, dev)
+    emit("train_card_vs_cpu", seconds=time.perf_counter() - t0, **train_cmp)
+    t0 = time.perf_counter()
+    resume = train_resume_check(torch, dev)
+    emit("train_resume", seconds=time.perf_counter() - t0, **resume)
+    emit("flash_grad_refusal", **flash_grad_refusal(torch, dev))
+
     # hash_probe: the insert entry's launches, the form its entry times;
     # all three entries' launches stand beside them.  flash and the bag:
     # the launches of every path that runs them, each path counted from 0
@@ -2223,6 +2613,7 @@ def main() -> int:
     bag_by_path = {"mind_" + k: mind_rep[k]["launches"]["embedding_bag"]
                    for k in ("serve_p99", "retrieval_cand")}
     bag_by_path["bag_path"] = bag_rep["launches"]["embedding_bag"]
+    bag_by_path["train_mind"] = train_mind["launches"]["embedding_bag"]
     by_path = {"flash_attention": flash_by_path,
                "embedding_bag": bag_by_path,
                "frontier_min": {"baselines": {
@@ -2251,6 +2642,8 @@ def main() -> int:
                 else {}),
              **({"moe_shapes": kern["flash_attention_moe"]}
                 if name == "flash_attention" else {}),
+             **({"train_shape": kern["embedding_bag_train"]}
+                if name == "embedding_bag" else {}),
              **({"lanes": dict(ten["kernels"][name],
                                launches=ten["lane_launches"][name])}
                 if name in ten["kernels"] else {}))

@@ -1,5 +1,5 @@
 """Carry a graph state and its config, an LM's weights and config, or
-MIND's, between the JAX package and the port.
+MIND's, or a training state, between the JAX package and the port.
 
 The state is handed over as a flat dict of numpy arrays (the JAX
 ``GraphState`` leaves, with the edge table's columns as ``src``, ``dst``
@@ -20,6 +20,7 @@ from repro_torch.core import graph_state as gs
 from repro_torch.models import moe
 from repro_torch.models import transformer as tf
 from repro_torch.models.recsys import mind
+from repro_torch.optim import compression, optimizer
 
 # numpy dtype of every leaf, as the JAX package stores it
 FIELDS = {"v_alive": np.bool_, "ccid": np.int32, "src": np.int32,
@@ -157,3 +158,71 @@ def mind_params_from_numpy(tree: Dict, cfg: mind.MINDConfig,
 
 def mind_params_to_numpy(params: mind.Params) -> Dict:
     return {k: _arr(v) for k, v in params.items()}
+
+
+# ------------------------------------------------------- train state ---
+# A trainer's state goes across as {'params', 'opt', 'ef'} in the JAX
+# layout: 'opt' with fields m, v (f32 trees shaped as the params) and
+# count, 'ef' with field err (an f32 tree) or None; each read by attribute
+# (the JAX NamedTuples with numpy leaves) or by key.  The LM's m, v and err
+# stack their layers on [L] there, as its params do.  The seed ('rng') is
+# each package's own and does not cross.
+
+def _field(x, name):
+    return x[name] if isinstance(x, dict) else getattr(x, name)
+
+
+def _tree_from_numpy(tree, cfg, device):
+    if isinstance(cfg, tf.LMConfig):
+        return lm_params_from_numpy(tree, cfg, device)
+    return mind_params_from_numpy(tree, cfg, device)
+
+
+def _tree_to_numpy(tree) -> Dict:
+    return lm_params_to_numpy(tree) if "layers" in tree \
+        else mind_params_to_numpy(tree)
+
+
+def opt_state_from_numpy(opt, cfg, device=gs.DEFAULT_DEVICE
+                         ) -> optimizer.OptState:
+    """The port's OptState (m and v in f32) from the JAX one in numpy;
+    ``cfg`` is the model's (an LMConfig or a MINDConfig)."""
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    return optimizer.OptState(
+        m=_tree_from_numpy(_field(opt, "m"), f32, device),
+        v=_tree_from_numpy(_field(opt, "v"), f32, device),
+        count=torch.tensor(int(np.asarray(_field(opt, "count"))),
+                           dtype=torch.int32, device=device))
+
+
+def opt_state_to_numpy(opt: optimizer.OptState) -> Dict:
+    return {"m": _tree_to_numpy(opt.m), "v": _tree_to_numpy(opt.v),
+            "count": np.int32(opt.count.item())}
+
+
+def ef_state_from_numpy(ef, cfg, device=gs.DEFAULT_DEVICE):
+    if ef is None:
+        return None
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    return compression.EFState(
+        err=_tree_from_numpy(_field(ef, "err"), f32, device))
+
+
+def ef_state_to_numpy(ef):
+    return None if ef is None else {"err": _tree_to_numpy(ef.err)}
+
+
+def train_state_from_numpy(tree: Dict, cfg, device=gs.DEFAULT_DEVICE
+                           ) -> Dict:
+    """A ``Trainer.state`` from {'params', 'opt', 'ef'} in the JAX layout
+    (the seed starts at 0)."""
+    return {"params": _tree_from_numpy(tree["params"], cfg, device),
+            "opt": opt_state_from_numpy(tree["opt"], cfg, device),
+            "ef": ef_state_from_numpy(tree.get("ef"), cfg, device),
+            "rng": torch.zeros((), dtype=torch.int64)}
+
+
+def train_state_to_numpy(state: Dict) -> Dict:
+    return {"params": _tree_to_numpy(state["params"]),
+            "opt": opt_state_to_numpy(state["opt"]),
+            "ef": ef_state_to_numpy(state["ef"])}

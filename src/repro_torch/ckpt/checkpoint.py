@@ -16,7 +16,8 @@ package -- ``d:<key>`` for a dict key (keys sorted), ``a:<field>`` for a
 NamedTuple field, ``s:<idx>`` for a list or tuple index, joined by ``|``
 -- so a store written by either package opens in the other.  Leaves may
 be torch tensors (copied to the host here, so a background writer pays
-the device-to-host copy, not its caller) or numpy arrays.
+the device-to-host copy, not its caller) or numpy arrays; a bf16 tensor
+is stored as its bits (``BF16_KEYS``).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import hashlib
 import json
 import os
 import re
-from typing import Any, Iterator, Tuple
+from typing import Any, Tuple
 
 import numpy as np
 import torch
@@ -32,55 +33,59 @@ import torch
 from repro_torch.core import edge_table as et
 from repro_torch.core import graph_state as gs
 from repro_torch.fault.inject import fs_fsync, fs_open
+from repro_torch.tree import SEP as _SEP, is_namedtuple, leaves
 
-_SEP = "|"
-
-
-def _is_namedtuple(x) -> bool:
-    return isinstance(x, tuple) and hasattr(x, "_fields")
-
-
-def leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
-    """(key path, leaf) in ``jax.tree_util``'s flattening order."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from leaves(tree[k], path + (f"d:{k}",))
-    elif _is_namedtuple(tree):
-        for name in tree._fields:
-            yield from leaves(getattr(tree, name), path + (f"a:{name}",))
-    elif isinstance(tree, (list, tuple)):
-        for i, x in enumerate(tree):
-            yield from leaves(x, path + (f"s:{i}",))
-    elif tree is not None:  # None is an empty subtree, as in JAX
-        yield _SEP.join(path), tree
+# A bf16 leaf (numpy has no bf16) is stored as its uint16 bits under its
+# own key path, and its key listed in this entry; every other leaf is
+# stored as it is, so a store without bf16 leaves is unchanged.
+BF16_KEYS = "__bf16__"
 
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).cpu().numpy().view(np.uint16)
+        return t.cpu().numpy()
     return np.asarray(leaf)
 
 
 def _flatten(tree) -> dict:
-    return {key: _host(leaf) for key, leaf in leaves(tree)}
+    flat, bf16 = {}, []
+    for key, leaf in leaves(tree):
+        flat[key] = _host(leaf)
+        if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+            bf16.append(key)
+    if bf16:
+        flat[BF16_KEYS] = np.array(bf16)
+    return flat
 
 
-def _rebuild(like, data, path: Tuple[str, ...] = ()):
+def _rebuild(like, data, path: Tuple[str, ...] = (),
+             bf16: frozenset = frozenset()):
     """``like``'s structure with every leaf read from ``data`` and cast to
-    the leaf's dtype (a torch leaf comes back on its own device)."""
+    the leaf's dtype (a torch leaf comes back on its own device); the keys
+    in ``bf16`` hold bf16 bits."""
     if isinstance(like, dict):
-        return {k: _rebuild(like[k], data, path + (f"d:{k}",))
+        return {k: _rebuild(like[k], data, path + (f"d:{k}",), bf16)
                 for k in like}
-    if _is_namedtuple(like):
+    if is_namedtuple(like):
         return type(like)(*(_rebuild(getattr(like, n), data,
-                                     path + (f"a:{n}",))
+                                     path + (f"a:{n}",), bf16)
                             for n in like._fields))
     if isinstance(like, (list, tuple)):
-        return type(like)(_rebuild(x, data, path + (f"s:{i}",))
+        return type(like)(_rebuild(x, data, path + (f"s:{i}",), bf16)
                           for i, x in enumerate(like))
     if like is None:
         return None
-    arr = data[_SEP.join(path)]
+    key = _SEP.join(path)
+    arr = data[key]
+    if key in bf16:
+        t = torch.from_numpy(np.array(arr).view(np.int16)).view(
+            torch.bfloat16)
+        if isinstance(like, torch.Tensor):
+            return t.to(device=like.device, dtype=like.dtype)
+        arr = t.float().numpy()
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(np.array(arr)).to(device=like.device,
                                                   dtype=like.dtype)
@@ -153,7 +158,9 @@ def restore(directory: str, tree_like: Any, step: int | None = None):
     if step is None:
         return None, None
     with np.load(os.path.join(directory, f"ckpt_{step}.npz")) as data:
-        return _rebuild(tree_like, data), step
+        bf16 = frozenset(data[BF16_KEYS].tolist()) \
+            if BF16_KEYS in data.files else frozenset()
+        return _rebuild(tree_like, data, bf16=bf16), step
 
 
 # ------------------------------------------------- graph snapshots ------

@@ -24,16 +24,17 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor, *,
                   mode: str = "sum",
                   weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """table: [V, D]; ids: int[B, L], an id outside [0, V) adds nothing
-    (-1 pads) -> f32[B, D].  ``mean`` divides by the number of ids >= 0,
-    at least 1."""
+    (-1 pads) -> f32[B, D] (f64 for an f64 table).  ``mean`` divides by
+    the number of ids >= 0, at least 1."""
     check_mode(mode)
+    dt = torch.promote_types(table.dtype, torch.float32)  # f32, or f64
     n_rows = table.shape[0]
     valid = (ids >= 0) & (ids < n_rows)
-    rows = table.float()[ids.clamp(0, max(n_rows - 1, 0)).long()]
-    w = (torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
-         if weights is None else weights.float())
+    rows = table.to(dt)[ids.clamp(0, max(n_rows - 1, 0)).long()]
+    w = (torch.ones(ids.shape, dtype=dt, device=ids.device)
+         if weights is None else weights.to(dt))
     w = torch.where(valid, w, torch.zeros_like(w))
     out = (rows * w[..., None]).sum(dim=1)
     if mode == "mean":
-        out = out / (ids >= 0).sum(dim=1, keepdim=True).clamp_min(1).float()
+        out = out / (ids >= 0).sum(dim=1, keepdim=True).clamp_min(1).to(dt)
     return out

@@ -1,6 +1,6 @@
-"""Decoder-only LM, serving side: the archs of ``repro.models.transformer``
-(qwen3-14b, h2o-danube-3-4b, gemma3-12b, and the MoE archs
-moonshot-v1-16b-a3b and qwen3-moe-235b-a22b).
+"""Decoder-only LM: the archs of ``repro.models.transformer`` (qwen3-14b,
+h2o-danube-3-4b, gemma3-12b, and the MoE archs moonshot-v1-16b-a3b and
+qwen3-moe-235b-a22b), for training and serving.
 
 GQA with separate ``n_kv_heads``, explicit ``head_dim``, optional qk-norm,
 sliding-window attention, a local:global layer pattern, RoPE, RMSNorm, a
@@ -9,30 +9,38 @@ head.  Parameters are a plain dict, as in the reference, with the layers
 as a list of per-layer dicts instead of arrays stacked on a leading [L]
 axis; weights keep the reference's ``x @ W`` ([in, out]) layout.
 
-Entry points: ``prefill`` (build the KV cache, return the last logits) and
-``decode_step`` (one token against the cache).  With ``attn_impl="flash"``
-prefill's attention runs the flash kernel, under the reference's condition:
-no KV override (decode keeps the plain path) and no local:global pattern.
-Training (``loss_fn``, remat) is not ported yet.
+Entry points: ``loss_fn`` (teacher-forced next-token CE plus the MoE aux
+loss, for training), ``prefill`` (build the KV cache, return the last
+logits) and ``decode_step`` (one token against the cache).  Attention is
+``xla`` (the materialized scores), ``chunked`` (an online softmax over KV
+chunks, which training uses, as the reference's train step does) or
+``flash``: the flash kernel, under the reference's condition (no KV
+override, so decode keeps the plain path, and no local:global pattern).
+The flash kernel has no backward, as the TPU kernel has no VJP: a gradient
+through it raises.  ``remat`` recomputes each layer in the backward pass
+(``full``) or all but its matmul outputs (``dots``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.models import common, moe as moe_lib
 
 NEG_INF = -1e30
-ATTN_IMPLS = ("xla", "flash")
+ATTN_IMPLS = ("xla", "flash", "chunked")
+REMATS = ("none", "full", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """The reference's fields and defaults; ``remat``, ``aux_loss_weight``
-    and ``scan_unroll`` change nothing in serving and exist so a JAX config
+    """The reference's fields and defaults; ``scan_unroll`` changes
+    nothing (the layer loop is a Python loop) and exists so a JAX config
     dict carries across (``carry.lm_config_from_dict``)."""
     name: str
     n_layers: int
@@ -49,9 +57,9 @@ class LMConfig:
     tie_embeddings: bool = True
     moe: Optional[moe_lib.MoEConfig] = None
     dtype: torch.dtype = torch.float32
-    remat: str = "none"      # training only; no effect on serving
-    attn_impl: str = "xla"   # 'xla' | 'flash' (flash needs uniform windows)
-    aux_loss_weight: float = 0.01  # MoE training only; no effect here
+    remat: str = "none"      # 'none' | 'full' | 'dots' (loss_fn only)
+    attn_impl: str = "xla"   # 'xla' | 'flash' | 'chunked'
+    aux_loss_weight: float = 0.01  # weight of the MoE aux loss in loss_fn
     act_spec: Any = None     # must stay None: no sharding in the port yet
     scan_unroll: bool = False  # the layer loop is a Python loop here
 
@@ -63,6 +71,8 @@ class LMConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} is not one of "
                              f"{ATTN_IMPLS}")
+        if self.remat not in REMATS:
+            raise ValueError(f"remat {self.remat!r} is not one of {REMATS}")
         if self.act_spec is not None:
             raise ValueError("act_spec: the port does not shard activations")
 
@@ -166,6 +176,62 @@ def _attention_xla(q, k, v, pos_q, pos_k, window: int) -> torch.Tensor:
     return out.reshape(b, sq, h, dh)
 
 
+def _attention_chunked(q, k, v, pos_q, pos_k, window: int,
+                       chunk: int = 1024) -> torch.Tensor:
+    """The reference's FlashAttention in plain ops: a loop over KV chunks
+    with an online softmax in f32, so no [B,H,Sq,Sk] score tensor exists;
+    the same mask as ``_attention_xla``.  A chunk that does not divide Sk
+    falls back to one chunk, as in the reference."""
+    b, sq, h, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    if sk % chunk != 0:
+        chunk = sk  # degenerate fallback (smoke shapes)
+    qg = q.reshape(b, sq, hkv, rep, dh).float() / (dh ** 0.5)
+    if pos_k.dim() == 1:
+        pos_k = pos_k[None].expand(b, sk)
+    m = torch.full((b, sq, hkv, rep), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, sq, hkv, rep), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, hkv, rep, dh), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, sk, chunk):
+        kb = k[:, c0:c0 + chunk].float()
+        vb = v[:, c0:c0 + chunk].float()
+        mask = _attn_scores_mask(pos_q, pos_k[:, c0:c0 + chunk],
+                                 window)[:, :, None, None]  # [B,Sq,1,1,C]
+        s = torch.einsum("bqhrd,bkhd->bqhrk", qg, kb)
+        s = torch.where(mask, s, NEG_INF)
+        # max(dim) keeps only the argmax for its backward (amax would keep
+        # the whole score chunk); the running max cancels in the result
+        m_new = torch.maximum(m, s.max(dim=-1).values)
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(mask, p, 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bqhrk,bkhd->bqhrd",
+                                                   p, vb)
+        m = m_new
+    out = acc / torch.where(l == 0.0, 1.0, l)[..., None]
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+class _FlashNoGrad(torch.autograd.Function):
+    """``fa.mha`` (the kernel on a card, its plain version on the CPU) with
+    a backward that refuses: the kernel has none, as the TPU kernel has no
+    VJP, and no gradient may vanish or fall back to a plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int):
+        return fa.mha(q, k, v, causal=True, window=window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise RuntimeError(
+            "the flash attention kernel has no backward; train with "
+            "attn_impl='chunked' (as the reference's train step does)")
+
+
 KVOverride = Callable[[torch.Tensor, torch.Tensor],
                       tuple]  # (k, v) -> (k_all, v_all, pos_k)
 
@@ -191,9 +257,11 @@ def _layer_fwd(cfg: LMConfig, p: Params, x, positions, window: int,
         k_all, v_all, pos_k = k, v, positions
     if cfg.attn_impl == "flash" and kv_override is None \
             and cfg.local_global == 0:
-        out = fa.mha(q.transpose(1, 2), k_all.transpose(1, 2),
-                     v_all.transpose(1, 2), causal=True,
-                     window=cfg.window).transpose(1, 2)
+        out = _FlashNoGrad.apply(q.transpose(1, 2), k_all.transpose(1, 2),
+                                 v_all.transpose(1, 2),
+                                 cfg.window).transpose(1, 2)
+    elif cfg.attn_impl == "chunked":
+        out = _attention_chunked(q, k_all, v_all, positions, pos_k, window)
     else:
         out = _attention_xla(q, k_all, v_all, positions, pos_k, window)
     x = x + out.reshape(b, s, cfg.n_heads * dh) @ p["wo"]
@@ -212,6 +280,57 @@ def _layer_fwd(cfg: LMConfig, p: Params, x, positions, window: int,
 def _logits(cfg: LMConfig, params: Params, x) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return (x @ head).float()
+
+
+# --------------------------------------------------------------- losses ---
+
+_MATMULS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots`` remat: keep matmul outputs, recompute everything else (the
+    reference's ``checkpoint_dots``)."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _train_layer(cfg: LMConfig, p: Params, x, positions, window: int):
+    """One layer for the loss, under ``cfg.remat`` -> (y, aux)."""
+    def body(x):
+        y, _, aux = _layer_fwd(cfg, p, x, positions, window)
+        return y, aux
+
+    if cfg.remat == "none":
+        return body(x)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return ckpt.checkpoint(body, x, use_reentrant=False, **kw)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig):
+    """batch: {'tokens': int[B,S], 'labels': int[B,S] (< 0 = pad)} ->
+    (loss, {'ce', 'aux'}): the mean next-token NLL over labels >= 0, plus
+    ``aux_loss_weight`` x the layers' MoE aux loss / n_layers."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    b, s = tokens.shape
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, window in zip(params["layers"], cfg.windows):
+        x, a = _train_layer(cfg, p, x, positions, window)
+        aux = aux + a
+    x = common.rms_norm(x, params["ln_f"])
+    logits = _logits(cfg, params, x)
+    valid = labels >= 0
+    tgt = labels.clamp_min(0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, tgt[..., None])[..., 0]
+    loss = (nll * valid).sum() / valid.sum().clamp_min(1)
+    return loss + cfg.aux_loss_weight * aux / cfg.n_layers, {
+        "ce": loss, "aux": aux}
 
 
 # -------------------------------------------------------------- serving ---

@@ -15,6 +15,8 @@ same bf16-valued inputs at rtol 1e-2, atol 1e-2 x mean |answer|: a key
 gained or lost at a band edge moves an output by about |v| / window, above
 that limit at the band shapes below.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -711,3 +713,109 @@ def test_baselines_on_card_match_cpu(cuda):
         want = carry.state_to_numpy(want_st)
         for k, v in carry.state_to_numpy(got_st).items():
             np.testing.assert_array_equal(v, want[k], err_msg=f"{name} {k}")
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_backward_on_card_matches_cpu(cuda, mode, weighted):
+    """The kernel inside ``EmbeddingBagFn`` on the card: forward and the
+    table and weight gradients within 1e-5 of autograd through the plain
+    version on the CPU (padding, ids >= V and repeated ids included)."""
+    g = torch.Generator().manual_seed(3)
+    v, d, b, l = 300, 64, 40, 8
+    table = torch.randn(v, d, generator=g)
+    ids = torch.randint(-2, v + 20, (b, l), generator=g, dtype=torch.int32)
+    ids[:, -1] = ids[:, 0]  # a repeated id in every bag
+    ids[3] = -1             # a bag of padding only
+    w = torch.rand(b, l, generator=g)
+    grad = torch.randn(b, d, generator=g)
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        t = table.to(dev).requires_grad_()
+        wt = w.to(dev).requires_grad_() if weighted else None
+        before = eops.embedding_bag.launches
+        out = eops.embedding_bag(t, ids.to(dev), mode=mode, weights=wt)
+        leaves = [t] + ([wt] if weighted else [])
+        grads = torch.autograd.grad(out, leaves, grad.to(dev))
+        if dev.type == "cuda":
+            assert eops.embedding_bag.launches == before + 1
+        runs.append([out.detach().cpu()] + [x.cpu() for x in grads])
+    for got, want in zip(runs[1], runs[0]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_mind_loss_gradients_on_card_match_cpu(cuda):
+    """MIND's smoke loss on both devices from one state: loss within 1e-5,
+    every gradient (``profile_embed``'s through the bag kernel) within
+    2e-4."""
+    from repro_torch import carry
+    from repro_torch.configs import mind as mind_cfg
+    from repro_torch.data import pipeline
+    from repro_torch.models.recsys import mind
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = mind_cfg.smoke_config()
+    tree = carry.mind_params_to_numpy(
+        mind.init(cfg, torch.Generator().manual_seed(0), "cpu"))
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        params = carry.mind_params_from_numpy(tree, cfg, dev)
+        batch = pipeline.mind_batch(cfg.n_items, 32, cfg.seq_len,
+                                    cfg.profile_vocab, cfg.profile_len,
+                                    cfg.n_neg, step=1, device=dev)
+        leaves = [p.requires_grad_() for p in tree_leaves(params)]
+        before = eops.embedding_bag.launches
+        loss, _ = mind.loss_fn(params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        if dev.type == "cuda":
+            assert eops.embedding_bag.launches == before + 1
+        runs.append((loss.detach().cpu(), [x.cpu() for x in grads]))
+    torch.testing.assert_close(runs[1][0], runs[0][0], rtol=1e-5, atol=1e-5)
+    for got, want in zip(runs[1][1], runs[0][1]):
+        assert bool(want.ne(0).any())
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_bf16_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A bf16 trainer state saved from the card comes back bit for bit, on
+    the card, in bf16."""
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.configs import qwen3_14b
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import optimizer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(qwen3_14b.smoke_config(), dtype=torch.bfloat16)
+    params = tf.init(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    state = {"params": params, "opt": optimizer.init(params), "ef": None,
+             "rng": torch.tensor(5)}
+    checkpoint.save(str(tmp_path), 5, state)
+    got, step = checkpoint.restore(str(tmp_path),
+                                   tree_map(torch.zeros_like, state))
+    assert step == 5
+    for want, back in zip(tree_leaves(state), tree_leaves(got)):
+        assert back.device == want.device and back.dtype == want.dtype
+        bits = (lambda x: x.view(torch.int16)
+                if x.dtype == torch.bfloat16 else x)
+        assert torch.equal(bits(back), bits(want))
+
+
+def test_flash_refuses_a_backward_on_card(cuda):
+    """A loss through the flash kernel runs forward on the card (one launch
+    a layer) and refuses its backward."""
+    from repro_torch.configs import qwen3_14b
+    from repro_torch.data import pipeline
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
+
+    cfg = qwen3_14b.smoke_config(attn_impl="flash")
+    params = tf.init(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    batch = pipeline.lm_batch(cfg.vocab, 2, 32, step=0, device=cuda)
+    before = aops.mha.launches
+    loss, _ = tf.loss_fn(params, batch, cfg)
+    assert aops.mha.launches == before + cfg.n_layers
+    assert bool(torch.isfinite(loss))
+    with pytest.raises(RuntimeError, match="attn_impl='chunked'"):
+        torch.autograd.grad(loss, leaves)

@@ -129,8 +129,12 @@ def test_carry_round_trip_is_exact():
 def test_unported_options_raise():
     with pytest.raises(ValueError, match="MoE"):
         qwen3_14b.smoke_config(moe=object())
+    # 'chunked' is ported (training); the sharding constraint is not
+    qwen3_14b.smoke_config(attn_impl="chunked")
     with pytest.raises(ValueError, match="attn_impl"):
-        qwen3_14b.smoke_config(attn_impl="chunked")
+        qwen3_14b.smoke_config(attn_impl="splash")
+    with pytest.raises(ValueError, match="act_spec"):
+        qwen3_14b.smoke_config(act_spec=("data", "model", None))
 
 
 def test_serve_lm_on_cpu():

@@ -245,9 +245,10 @@ def test_port_imports_nothing_of_jax():
     examples = sorted((ROOT / "examples").glob("*_torch.py"))
     assert [p.name for p in examples] == [
         "community_detection_torch.py", "dynamic_scc_serving_torch.py",
-        "quickstart_torch.py"]
+        "quickstart_torch.py", "train_lm_torch.py"]
     files += examples
-    files.append(ROOT / "scripts" / "profile_lm_torch.py")
+    files += [ROOT / "scripts" / "profile_lm_torch.py",
+              ROOT / "scripts" / "profile_train_torch.py"]
     assert len(files) > 20
     port = ROOT / "src" / "repro_torch"
     for rel in ("ckpt/checkpoint.py", "ckpt/oplog.py", "ckpt/durable.py",
@@ -257,7 +258,9 @@ def test_port_imports_nothing_of_jax():
                 "tenancy/queue.py", "core/baselines.py", "models/moe.py",
                 "models/recsys/mind.py", "graph/segment_ops.py",
                 "configs/mind.py", "configs/moonshot_v1_16b_a3b.py",
-                "configs/qwen3_moe_235b_a22b.py"):
+                "configs/qwen3_moe_235b_a22b.py", "data/pipeline.py",
+                "optim/optimizer.py", "optim/compression.py",
+                "train/trainer.py", "launch/train.py", "tree.py"):
         assert port / rel in files, rel
     for path in files:
         for mod in _imports(path):
