@@ -130,7 +130,36 @@ Phases, each printing one line or more:
    same 3 steps: final params bit-identical;
 17. flash under a gradient (``flash_grad_refusal``): a loss through the
    flash kernel launches it once a layer and its backward raises;
-18. the kernels line (JSON; frontier_min and hash_probe also carry their
+18. GNN training (``train_gnn_path``, TF32 off): egnn (4 x 64), gatedgcn
+   (16 x 70), nequip (5 x 32, l_max 2, 8 rbf) and mace (2 x 128, l_max 2,
+   correlation 3) at their published configs, remat on as the
+   reference's ``build_gnn`` sets it, the port's Trainer with the
+   reference launcher's AdamW, on the reference's shapes
+   (``configs/gnn_shapes.py``): molecule (128 graphs x 30 nodes x 64
+   edges, energy and forces: a second derivative through every scatter
+   and checkpointed layer; gatedgcn energy only), full_graph_sm (Cora's
+   size) and minibatch_lg (a Reddit-sized CSR of ~1.146e8 edges and a
+   232965 x 602 feature table on the card, 1024 seeds sampled at fanouts
+   15, 10 a step), 4 steps each; and nequip alone on ogb_products
+   (2449029 nodes, 61859140 edges) with its chunked-edge convolution in
+   64 chunks, 2 steps (``reduced`` gives why 64, not build_gnn's 32, and
+   the memory reckoning that keeps the other three off one card).  One
+   ``train_gnn`` line a run: median step time, graphs/s, nodes/s or
+   seeds/s, the batch's making (sampling included) apart, peak memory
+   allocated and reserved, ``model_flops_share`` (the reference's
+   ``gnn_model_flops`` over the median step and 67 TFLOP/s); every loss
+   and force finite, step 1's zero gradients exactly the leaves the
+   reference's loss leaves zero, the allocator's peak reserve under
+   80 GB;
+19. GNN card vs CPU (``gnn_card_vs_cpu``): each arch's smoke config on
+   both tasks, one state on both devices through ``carry``: loss and
+   energies within 1e-5 relative, logits, forces, gradients and the
+   params after one Trainer step within rtol 2e-4 / atol 2e-5 (f32, TF32
+   off; MACE's energy task in f64, which its conditioning needs); NequIP
+   chunked against unchunked on the card (rtol 1e-5 / atol 1e-6
+   energies, rtol 2e-3 / atol 1e-5 first-order gradients); the sampler
+   on the card equal to the CPU's given the same draws;
+20. the kernels line (JSON; frontier_min and hash_probe also carry their
    tenant-row form under ``lanes``; flash and the bag their launches on
    each path under ``launches_by_path``, flash its MoE-shape rows under
    ``moe_shapes``, the bag its training-shape row, forward and backward,
@@ -1685,6 +1714,462 @@ def flash_grad_refusal(torch, dev) -> dict:
     return {"forward_launches": fwd, "raised": refused}
 
 
+# ------------------------------------------------------------ GNN phases ---
+
+GNN_ARCHS = ("egnn", "gatedgcn", "nequip", "mace")
+
+
+def gnn_model_flops(arch: str, cfg, n_nodes: int, n_edges: int) -> int:
+    """Useful FLOPs of one GNN training step, by the reference's formula
+    (``repro/launch/steps.py`` ``gnn_model_flops``, copied): the forward's
+    per-edge and per-node matmul and tensor-product work per family, x 3
+    for the forward and the backward."""
+    c = cfg.d_hidden
+    if arch == "gatedgcn":
+        fwd = n_edges * (3 * 2 * c * c) + n_nodes * (2 * 2 * c * c)
+        fwd *= cfg.n_layers
+    elif arch == "egnn":
+        fwd = n_edges * (2 * (2 * c + 1) * c + 2 * c * c + 2 * c * c) + \
+            n_nodes * (2 * 2 * c * c)
+        fwd *= cfg.n_layers
+    else:  # nequip / mace: radial MLP + per-path TP + mixing
+        n_paths = 15 if cfg.l_max >= 2 else (4 if cfg.l_max == 1 else 1)
+        tp_cost = n_edges * n_paths * c * 18     # avg contraction cost
+        radial = n_edges * 2 * (cfg.n_rbf * 32 + 32 * n_paths * c)
+        mix = n_nodes * (cfg.l_max + 1) * 2 * c * c * 9
+        fwd = (tp_cost + radial + mix) * cfg.n_layers
+        if arch == "mace":
+            fwd += cfg.n_layers * n_nodes * 2 * n_paths * c * 18  # B-products
+    return 3 * fwd
+
+
+def gnn_zero_grad_prefixes(arch: str, task: str, pos_zero: bool) -> tuple:
+    """Key-path prefixes of the leaves whose step-1 gradient the
+    reference's own loss leaves zero.  MACE's energy is the sum of its
+    per-layer readouts, so its head goes unused there, and node
+    classification reads the head, not the readouts.  On the sampled
+    shape every position is zero (``sampled_block_batch``), so every edge
+    is zero-length: EGNN's position update moves nothing, and NequIP's and
+    MACE's convolutions mask every message, which leaves their radial
+    MLPs, the mixing of the (zero) messages, MACE's products of them and
+    every l > 0 channel (zero from the start) without a gradient."""
+    out = []
+    if arch == "mace":
+        out.append("d:head" if task == "energy" else "d:layers|d:readout")
+    if pos_zero and arch == "egnn":
+        out.append("d:layers|d:phi_x")
+    if pos_zero and arch in ("nequip", "mace"):
+        out += ["d:layers|d:radial", "d:layers|d:skip|d:l1",
+                "d:layers|d:skip|d:l2", "d:layers|d:gate"]
+        out += (["d:layers|d:mix|"] if arch == "nequip" else
+                ["d:layers|d:w2", "d:layers|d:w3", "d:layers|d:mix1",
+                 "d:layers|d:mix2", "d:layers|d:mix3"])
+    return tuple(out)
+
+
+def ogb_cuts(n: int, e: int) -> dict:
+    """Why gatedgcn, egnn and mace do not run at ogb_products on one
+    80 GB card: the f32 activations their backward keeps, at N nodes and
+    E edges (the reference streams edges in chunks for nequip and mace
+    only, and mace's node-side products outgrow the card regardless)."""
+    def gb(b):
+        return f"{b / 1e9:.1f} GB"
+    return {
+        "gatedgcn": f"16 checkpointed layers each keep the [E, 70] edge "
+                    f"carry ({gb(e * 70 * 4)} at E = {e}): "
+                    f"{gb(16 * e * 70 * 4)}",
+        "egnn": f"a layer's backward keeps its [E, 129] message input "
+                f"({gb(e * 129 * 4)}) and the seven [E, 64] activations "
+                f"of its two edge MLPs ({gb(7 * e * 64 * 4)}), and the "
+                f"reference streams only nequip and mace in chunks",
+        "mace": f"one [N, 128, 13] feature set is {gb(n * 128 * 13 * 4)} "
+                f"at N = {n}, and a layer's products and mixes keep about "
+                f"ten for the backward ({gb(10 * n * 128 * 13 * 4)})",
+    }
+
+
+def gnn_full_config(mod, shape: dict, **kw):
+    """The arch's published config on ``shape`` as the reference's
+    ``build_gnn`` sets it: energy (+ forces) on molecules, node
+    classification otherwise, remat on."""
+    if shape["kind"] == "train_mol":
+        return mod.config(task="energy", n_classes=2,
+                          d_feat=shape["d_feat"], n_graphs=shape["batch"],
+                          remat=True, **kw)
+    return mod.config(task="node_class", n_classes=shape["n_classes"],
+                      d_feat=shape["d_feat"], n_graphs=1, remat=True, **kw)
+
+
+def train_gnn_run(torch, dev, arch, shape_name, cfg, data_fn, *, steps,
+                  n_nodes, n_edges, rate, pos_zero=False,
+                  reduced=None) -> dict:
+    """``cfg`` trained by the port's Trainer (random weights from SEED on
+    the card, the reference launcher's AdamW) on ``data_fn``'s batches
+    for ``steps`` steps, step 1's gradients checked leaf by leaf against
+    the leaves the reference's loss leaves zero; making a batch (sampling
+    included) is timed apart.  ``rate`` = (name, items a
+    step)."""
+    from repro_torch import configs
+    from repro_torch.tree import leaves, tree_leaves
+
+    model = configs.get(arch).MODULE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    data_s = []
+
+    def timed_data(step):
+        t0 = time.perf_counter()
+        b = data_fn(step)
+        sync(torch, dev)
+        data_s.append(time.perf_counter() - t0)
+        return b
+
+    t = make_trainer((params, lambda p, b: model.loss_fn(p, b, cfg),
+                      timed_data), steps)
+    # step 1's gradients, read as the step computes them (an extra
+    # forward and backward would cost ogb_products two minutes)
+    nonzero = {}
+    value_and_grad = t.value_and_grad
+
+    def step_value_and_grad(p, b):
+        loss, metrics, grads = value_and_grad(p, b)
+        if not nonzero:
+            named = list(leaves(grads))
+            flags = torch.stack([g.ne(0).any() for _, g in named]).tolist()
+            nonzero.update({k: bool(f) for (k, _), f in zip(named, flags)})
+        return loss, metrics, grads
+
+    t.value_and_grad = step_value_and_grad
+    log = t.run()
+    losses = [m["loss"] for _, m in log]
+    med = sorted(t.step_times)[len(t.step_times) // 2]
+    flops = gnn_model_flops(arch, cfg, n_nodes, n_edges)
+    prefixes = gnn_zero_grad_prefixes(arch, cfg.task, pos_zero)
+    zero = sorted(k for k, f in nonzero.items() if not f)
+    want_zero = sorted(k for k in nonzero if k.startswith(prefixes))
+    rep = {"arch": arch, "shape": shape_name, "task": cfg.task,
+           "n_layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+           "n_params": sum(p.numel() for p in tree_leaves(params)),
+           "n_nodes": n_nodes, "n_edges": n_edges, "remat": cfg.remat,
+           "edge_chunk": getattr(cfg, "edge_chunk", 0), "steps": steps,
+           "losses": losses, "step_times_s": t.step_times,
+           "median_step_s": med, rate[0]: rate[1] / med,
+           "data_s": data_s,
+           "model_flops_per_step": flops,
+           "model_flops_share": flops / med / F32_FLOPS,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev),
+           "grad_leaves": len(nonzero), "zero_grad_leaves": zero,
+           "stragglers": t.straggler_events}
+    if cfg.task == "energy" and arch != "gatedgcn":
+        b = data_fn(0)
+        pos = b["pos"].clone().requires_grad_()
+        e = model.node_energy(t.state["params"], pos, b, cfg)
+        forces = -torch.autograd.grad(e.sum(), pos)[0]
+        rep["forces_finite"] = bool(torch.isfinite(forces).all())
+        rep["max_abs_force"] = float(forces.abs().max())
+        check(rep["forces_finite"], f"{arch} {shape_name}: forces not "
+                                    f"finite")
+    if reduced:
+        rep["reduced"] = reduced
+    tag = f"{arch} {shape_name}"
+    check(all(math.isfinite(x) for x in losses),
+          f"{tag}: a loss is not finite: {losses}")
+    check(zero == want_zero,
+          f"{tag}: zero step-1 gradients in {zero}, expected {want_zero}")
+    # the reserve, not only the bytes allocated: what the card must hold
+    check(rep["peak_reserved_bytes"] < 80e9,
+          f"{tag}: peak {rep['peak_mem_bytes']} B allocated, "
+          f"{rep['peak_reserved_bytes']} B reserved")
+    return rep
+
+
+# build_gnn streams E // 32 edges a chunk above 2^22 edges; on one card
+# the allocator's peak reserve at 32 chunks passed 80 GB (83.1 GB of the
+# H100's 85.0), so ogb_products runs 64 (``reduced`` says so)
+OGB_CHUNKS = 64
+
+
+def gnn_shape_data(torch, dev, name: str, shape: dict) -> dict:
+    """One of the reference's GNN shapes on ``dev``: ``data_fn`` (step ->
+    batch), the batch's node and edge counts, the rate a run reports
+    (name, items a step), whether every position is zero, the config's
+    shape-specific fields and what making the data took."""
+    from repro_torch.configs import gnn_shapes
+    from repro_torch.data import pipeline
+    from repro_torch.graph import sampler
+
+    out = {"pos_zero": False, "cfg_kw": {}, "info": {}}
+    if shape["kind"] == "train_mol":
+        out.update(
+            data_fn=lambda s: pipeline.molecule_batch(
+                shape["batch"], shape["n_nodes"], shape["n_edges"],
+                shape["d_feat"], step=s, device=dev),
+            n_nodes=shape["batch"] * shape["n_nodes"],
+            n_edges=shape["batch"] * shape["n_edges"],
+            rate=("graphs_per_s", shape["batch"]))
+    elif shape["kind"] == "train_sampled":
+        t0 = time.perf_counter()
+        csr = sampler.make_synthetic_csr(
+            shape["n_nodes"], round(shape["n_edges"] / shape["n_nodes"]),
+            seed=SEED, device=dev)
+        sync(torch, dev)
+        out["info"] = {"csr_build_s": time.perf_counter() - t0,
+                       "csr_edges": int(csr.indices.numel()),
+                       "csr_indices_bytes": csr.indices.numel() * 4}
+        g = torch.Generator(dev).manual_seed(SEED)
+        feats = torch.randn((shape["n_nodes"], shape["d_feat"]),
+                            generator=g, device=dev)
+        labels = torch.randint(0, shape["n_classes"], (shape["n_nodes"],),
+                               generator=g, device=dev, dtype=torch.int32)
+        n_nodes, n_edges = gnn_shapes.sampled_block_dims(shape)
+        out.update(
+            data_fn=lambda s: pipeline.sampled_block_batch(
+                csr, feats, labels, shape["batch_nodes"], shape["fanouts"],
+                s),
+            n_nodes=n_nodes, n_edges=n_edges, pos_zero=True,
+            rate=("seeds_per_s", shape["batch_nodes"]))
+    else:
+        t0 = time.perf_counter()
+        graph = pipeline.node_class_graph(
+            shape["n_nodes"], shape["n_edges"], shape["d_feat"],
+            shape["n_classes"], seed=SEED, device=dev)
+        n_edges = shape["n_edges"]
+        if name == "ogb_products":
+            # pad with masked edges so the chunk count divides the edges,
+            # as build_gnn's padding to the mesh's size does on a pod
+            pad = -n_edges % OGB_CHUNKS
+            for k, fill in (("src", 0), ("dst", 0), ("edge_mask", False)):
+                graph[k] = torch.cat([graph[k], torch.full(
+                    (pad,), fill, dtype=graph[k].dtype, device=dev)])
+            n_edges += pad
+            out["cfg_kw"] = {"edge_chunk": n_edges // OGB_CHUNKS}
+            out["info"]["padded_edges"] = pad
+        sync(torch, dev)
+        out["info"]["graph_build_s"] = time.perf_counter() - t0
+        out.update(data_fn=lambda s: graph, n_nodes=shape["n_nodes"],
+                   n_edges=n_edges, rate=("nodes_per_s", shape["n_nodes"]))
+    return out
+
+
+def train_gnn_path(torch, dev, *, steps=4, ogb_steps=2, shapes=None,
+                   archs=GNN_ARCHS) -> list:
+    """The four GNNs at their published widths on the reference's input
+    shapes (``configs/gnn_shapes.py``), TF32 off: molecule (energy and
+    forces), full_graph_sm and minibatch_lg (node classification; the
+    Reddit-sized CSR and feature table on the card, 1024 seeds sampled at
+    fanouts 15, 10 each step), and nequip alone on ogb_products with its
+    chunked-edge convolution.  One ``train_gnn`` line per run."""
+    from repro_torch import configs
+    from repro_torch.configs import gnn_shapes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shapes = shapes or gnn_shapes.gnn_shapes()
+    reps = []
+    for name in ("molecule", "full_graph_sm", "minibatch_lg",
+                 "ogb_products"):
+        shape = shapes[name]
+        run_archs = [a for a in archs
+                     if name != "ogb_products" or a == "nequip"]
+        if not run_archs:
+            continue
+        data = gnn_shape_data(torch, dev, name, shape)
+        emit("gnn_shape", shape=name, **data["info"])
+        for arch in run_archs:
+            cfg = gnn_full_config(configs.get(arch), shape, **data["cfg_kw"])
+            reduced = None
+            if name == "ogb_products":
+                reduced = {"archs": ogb_cuts(shape["n_nodes"],
+                                             shape["n_edges"]),
+                           "edges": f"{shape['n_edges']} + "
+                                    f"{data['info']['padded_edges']} masked "
+                                    f"edges, so that {OGB_CHUNKS} chunks of "
+                                    f"{cfg.edge_chunk} divide them "
+                                    f"(build_gnn pads to the mesh's size)",
+                           "edge_chunk": "E // 32 -> E // 64: at build_gnn's "
+                                         "32 chunks the allocator's peak "
+                                         "reserve passed 80 GB (83.1 GB of "
+                                         "the card's 85.0)"}
+            rep = train_gnn_run(
+                torch, dev, arch, name, cfg, data["data_fn"],
+                steps=ogb_steps if name == "ogb_products" else steps,
+                n_nodes=data["n_nodes"], n_edges=data["n_edges"],
+                rate=data["rate"], pos_zero=data["pos_zero"],
+                reduced=reduced)
+            emit("train_gnn", **rep)
+            reps.append(rep)
+        del data
+    return reps
+
+
+def gnn_logits(arch, model, params, batch, cfg):
+    """Per-node logits of a node-classification config, as its
+    ``loss_fn`` computes them."""
+    from repro_torch.models import common
+    from repro_torch.models.gnn import common as gc
+
+    if arch == "gatedgcn":
+        h = model._forward(params, batch, cfg)
+    elif arch == "egnn":
+        h, _ = model._forward(params, batch["pos"], batch, cfg)
+    elif arch == "nequip":
+        h = gc.invariants(model._forward(params, batch["pos"], batch, cfg))
+    else:
+        h = gc.invariants(model._forward(params, batch["pos"], batch,
+                                         cfg)[0])
+    return common.mlp_apply(params["head"], h)
+
+
+def gnn_smoke_batch(torch, pipeline, task, cfg, device):
+    if task == "energy":
+        b = pipeline.molecule_batch(cfg.n_graphs, 6, 12, cfg.d_feat, step=0,
+                                    device=device)
+    else:
+        b = pipeline.node_class_graph(60, 240, cfg.d_feat, cfg.n_classes,
+                                      seed=SEED, device=device)
+    return {k: v.to(cfg.dtype) if v.is_floating_point() else v
+            for k, v in b.items()}
+
+
+def gnn_card_vs_cpu(torch, dev) -> dict:
+    """Each GNN's smoke config (remat on) on both tasks, one state on both
+    devices through ``carry``, TF32 off: the loss and the energies within
+    1e-5 relative (energies: of the largest |energy|); logits, forces,
+    every gradient leaf and every parameter after one Trainer step within
+    rtol 2e-4 / atol 2e-5.  In f32, except MACE's energy task, in f64: its
+    force loss differentiates twice through norms of near-zero features,
+    and its f32 gradients stand over 10x that tolerance from its own f64
+    answer on one device.  Then NequIP chunked (3 chunks)
+    against unchunked on the card, and the sampler on the card against the
+    CPU's, fed the same draws."""
+    from repro_torch import carry, configs
+    from repro_torch.data import pipeline
+    from repro_torch.graph import sampler
+    from repro_torch.models.gnn import nequip
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = torch.device("cpu")
+    rtol, atol = 2e-4, 2e-5
+    out = {"loss_rtol": 1e-5, "rtol": rtol, "atol": atol}
+
+    def close(a, b, what, tag):
+        check(all(x.shape == y.shape and torch.allclose(x, y, rtol=rtol,
+                                                        atol=atol)
+                  for x, y in zip(a, b)),
+              f"{tag}: card and CPU {what} differ by "
+              f"{max(float((x - y).abs().max()) for x, y in zip(a, b))}")
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    for arch in GNN_ARCHS:
+        mod = configs.get(arch)
+        for task in ("energy", "node_class"):
+            f64 = arch == "mace" and task == "energy"
+            cfg = mod.smoke_config(
+                task=task, n_classes=3, remat=True,
+                dtype=torch.float64 if f64 else torch.float32)
+            tree = carry.gnn_params_to_numpy(mod.MODULE.init(
+                cfg, torch.Generator().manual_seed(SEED), cpu))
+            runs = []
+            for d in (cpu, dev):
+                batch = gnn_smoke_batch(torch, pipeline, task, cfg, d)
+                params = carry.gnn_params_from_numpy(tree, cfg, d)
+                t = make_trainer((params, lambda p, b: mod.MODULE.loss_fn(
+                    p, b, cfg), lambda s: batch), 1)
+                loss, _, grads = t.value_and_grad(params, batch)
+                if task == "energy":
+                    pos = batch["pos"].clone().requires_grad_()
+                    e = mod.MODULE.node_energy(params, pos, batch, cfg)
+                    outs = [e.detach()]
+                    if arch != "gatedgcn":
+                        outs.append(-torch.autograd.grad(e.sum(), pos)[0])
+                else:
+                    with torch.no_grad():
+                        outs = [gnn_logits(arch, mod.MODULE, params, batch,
+                                           cfg)]
+                t.run()
+                runs.append((float(loss), [o.cpu() for o in outs],
+                             [g.cpu() for g in tree_leaves(grads)],
+                             [p.detach().cpu()
+                              for p in tree_leaves(t.state["params"])]))
+            (l_cpu, o_cpu, g_cpu, p_cpu), (l_card, o_card, g_card,
+                                           p_card) = runs
+            tag = f"{arch} {task}"
+            rep = {"dtype": "float64" if f64 else "float32",
+                   "loss_cpu": l_cpu, "loss_card": l_card,
+                   "leaves": len(g_cpu)}
+            check(abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu),
+                  f"{tag}: card loss {l_card} vs CPU {l_cpu}")
+            if task == "energy":
+                e_err = float((o_card[0] - o_cpu[0]).abs().max())
+                rep["energy_max_abs_err"] = e_err
+                check(e_err <= 1e-5 * float(o_cpu[0].abs().max()),
+                      f"{tag}: card energies differ by {e_err}")
+                if len(o_cpu) > 1:
+                    rep["forces_max_abs_err"] = close(
+                        o_card[1:], o_cpu[1:], "forces", tag)
+            else:
+                rep["logits_max_abs_err"] = close(o_card, o_cpu, "logits",
+                                                  tag)
+            rep["grad_max_abs_err"] = close(g_card, g_cpu, "gradients", tag)
+            rep["param_max_abs_err"] = close(p_card, p_cpu,
+                                             "params after a step", tag)
+            out[f"{arch}_{task}"] = rep
+
+    # nequip chunked (3 chunks of 8 edges) against unchunked, on the card
+    cfg = configs.get("nequip").smoke_config(remat=True)
+    params = nequip.init(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    batch = gnn_smoke_batch(torch, pipeline, "energy", cfg, dev)
+    n_e = batch["src"].shape[0]
+    res = []
+    for c in (cfg, dataclasses.replace(cfg, edge_chunk=n_e // 3)):
+        pos = batch["pos"].clone().requires_grad_()
+        e = nequip.node_energy(params, pos, batch, c)
+        res.append((e.detach(), torch.autograd.grad(e.sum(),
+                                                    leaves + [pos])))
+    (e1, g1), (e2, g2) = res
+    e_err = float((e1 - e2).abs().max())
+    g_err = max(float((a - b).abs().max()) for a, b in zip(g1, g2))
+    out["nequip_chunked"] = {"edges": n_e, "chunks": 3,
+                             "energy_max_abs_err": e_err,
+                             "grad_max_abs_err": g_err}
+    check(torch.allclose(e1, e2, rtol=1e-5, atol=1e-6),
+          f"nequip chunked energies differ by {e_err}")
+    check(all(torch.allclose(a, b, rtol=2e-3, atol=1e-5)
+              for a, b in zip(g1, g2)),
+          f"nequip chunked gradients differ by {g_err}")
+
+    # the sampler: the same draws on both devices
+    g = torch.Generator().manual_seed(SEED)
+    fanouts, n_seeds = (15, 10), 256
+    draws, n = [], n_seeds
+    for f in fanouts:
+        draws.append(torch.randint(0, sampler.DRAW_HIGH, (n, f),
+                                   generator=g))
+        n *= f
+    feats = torch.randn((4000, 8), generator=g)
+    labels = torch.randint(0, 5, (4000,), generator=g, dtype=torch.int32)
+    got = []
+    for d in (cpu, dev):
+        csr = sampler.make_synthetic_csr(4000, 30, seed=SEED, device=d)
+        b = pipeline.sampled_block_batch(csr, feats.to(d), labels.to(d),
+                                         n_seeds, fanouts, step=3,
+                                         draws=draws)
+        got.append([x.cpu() for x in (csr.indptr, csr.indices)] +
+                   [b[k].cpu() for k in sorted(b)])
+    same = all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(*got))
+    out["sampler"] = {"n_nodes": 4000, "n_edges": int(got[0][1].numel()),
+                      "seeds": n_seeds, "fanouts": list(fanouts),
+                      "identical": same}
+    check(same, "the sampler on the card differs from the CPU's")
+    return out
+
+
 BASELINE_RUNS = ("apply_batch", "sequential_apply", "coarse_apply",
                  "static_per_batch_apply")
 
@@ -2603,6 +3088,17 @@ def main() -> int:
     resume = train_resume_check(torch, dev)
     emit("train_resume", seconds=time.perf_counter() - t0, **resume)
     emit("flash_grad_refusal", **flash_grad_refusal(torch, dev))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    emit("train_gnn_start", allocated_bytes=torch.cuda.memory_allocated(dev),
+         reserved_bytes=torch.cuda.memory_reserved(dev))
+    train_gnn_path(torch, dev)
+    emit("train_gnn_done", seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gnn_cmp = gnn_card_vs_cpu(torch, dev)
+    emit("gnn_card_vs_cpu", seconds=time.perf_counter() - t0, **gnn_cmp)
 
     # hash_probe: the insert entry's launches, the form its entry times;
     # all three entries' launches stand beside them.  flash and the bag:

@@ -7,16 +7,21 @@ time summed by kernel family.
     PYTHONPATH=src python scripts/profile_train_torch.py --arch mind
     PYTHONPATH=src python scripts/profile_train_torch.py --arch mind \\
         --gather index
+    PYTHONPATH=src python scripts/profile_train_torch.py --arch nequip \\
+        --shape minibatch_lg
 
 The cells of ``chip_smoke.py``'s training phases: qwen3-14b at full width
-and 4 layers (bf16, chunked attention, remat full, 2 x 4096 tokens), or
-MIND's full config at 65536 users.  ``--gather index`` times MIND with its
-item rows gathered by ``table[ids]`` instead of ``F.embedding``, for
-comparison.  Weights are random (a seeded generator on the card).  One
-step runs first, unprofiled.  Prints one JSON object (wall seconds to a
-synchronise, the device's busy seconds and idle share, device seconds by
-kernel family, the ten costliest kernels), then the card's name and power
-limit.  Needs a CUDA card: without one it exits 1.
+and 4 layers (bf16, chunked attention, remat full, 2 x 4096 tokens),
+MIND's full config at 65536 users, or a GNN (egnn, gatedgcn, nequip,
+mace) at its published config on one of the reference's GNN shapes
+(``--shape``, default minibatch_lg; chip_smoke's data, remat on, TF32
+off).  ``--gather index`` times MIND with its item rows gathered by
+``table[ids]`` instead of ``F.embedding``, for comparison.  Weights are
+random (a seeded generator on the card).  One step runs first,
+unprofiled.  Prints one JSON object (wall seconds to a synchronise, the
+device's busy seconds and idle share, device seconds by kernel family,
+the ten costliest kernels), then the card's name and power limit.  Needs
+a CUDA card: without one it exits 1.
 """
 from __future__ import annotations
 
@@ -27,14 +32,20 @@ import subprocess
 import sys
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+sys.path.insert(0, str(ROOT))
+GNN_ARCHS = ("egnn", "gatedgcn", "nequip", "mace")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-14b", choices=("qwen3-14b",
-                                                             "mind"))
+    ap.add_argument("--arch", default="qwen3-14b",
+                    choices=("qwen3-14b", "mind") + GNN_ARCHS)
+    ap.add_argument("--shape", default="minibatch_lg",
+                    choices=("molecule", "full_graph_sm", "minibatch_lg",
+                             "ogb_products"))
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--gather", default="embedding",
                     choices=("embedding", "index"))
@@ -59,6 +70,21 @@ def main() -> int:
         head = {"arch": "mind", "batch": 65536, "gather": args.gather}
         if args.gather == "index":
             mind._rows = lambda table, ids: table[ids.long()]
+    elif args.arch in GNN_ARCHS:
+        import chip_smoke
+        from repro_torch.configs import gnn_shapes
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        shape = gnn_shapes.gnn_shapes()[args.shape]
+        data = chip_smoke.gnn_shape_data(torch, dev, args.shape, shape)
+        mod = configs.get(args.arch)
+        cfg = chip_smoke.gnn_full_config(mod, shape, **data["cfg_kw"])
+        params = mod.MODULE.init(cfg, torch.Generator(dev).manual_seed(0),
+                                 dev)
+        setup = (params, lambda p, b: mod.MODULE.loss_fn(p, b, cfg),
+                 data["data_fn"])
+        head = {"arch": args.arch, "shape": args.shape,
+                "n_nodes": data["n_nodes"], "n_edges": data["n_edges"]}
     else:
         cfg = dataclasses.replace(configs.get(args.arch).config(
             attn_impl="chunked", remat="full"), n_layers=args.layers)

@@ -1,5 +1,6 @@
-"""Carry a graph state and its config, an LM's weights and config, or
-MIND's, or a training state, between the JAX package and the port.
+"""Carry a graph state and its config, an LM's weights and config, or a
+GNN's or MIND's, or a training state, between the JAX package and the
+port.
 
 The state is handed over as a flat dict of numpy arrays (the JAX
 ``GraphState`` leaves, with the edge table's columns as ``src``, ``dst``
@@ -19,8 +20,10 @@ from repro_torch.core import edge_table as et
 from repro_torch.core import graph_state as gs
 from repro_torch.models import moe
 from repro_torch.models import transformer as tf
+from repro_torch.models.gnn import egnn, gatedgcn, mace, nequip
 from repro_torch.models.recsys import mind
 from repro_torch.optim import compression, optimizer
+from repro_torch.tree import tree_map
 
 # numpy dtype of every leaf, as the JAX package stores it
 FIELDS = {"v_alive": np.bool_, "ccid": np.int32, "src": np.int32,
@@ -70,7 +73,8 @@ def state_to_numpy(state: gs.GraphState) -> Dict[str, np.ndarray]:
 # bf16 leaves (numpy's ml_dtypes bfloat16) are read through float32, which
 # holds them exactly, and handed back as float32.
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16}
 
 
 def _dtype_name(dtype) -> str:
@@ -160,12 +164,45 @@ def mind_params_to_numpy(params: mind.Params) -> Dict:
     return {k: _arr(v) for k, v in params.items()}
 
 
+# ----------------------------------------------------------------- GNN ---
+# A GNN's params are the JAX pytree as it stands, in both packages: nested
+# dicts and lists (an MLP is a list of {'w', 'b'}), the 'layers' subtree's
+# leaves stacked on a leading [n_layers] axis.  Its config is the
+# dataclass's dict; 'name' says which of the four it is, and the mesh axes
+# must be None (the port has no mesh).
+
+GNN_CONFIGS = {c.name: c for c in (egnn.EGNNConfig, gatedgcn.GatedGCNConfig,
+                                    nequip.NequIPConfig, mace.MACEConfig)}
+GNN_CONFIG_TYPES = tuple(GNN_CONFIGS.values())
+
+
+def gnn_config_to_dict(cfg) -> Dict:
+    d = dataclasses.asdict(cfg)
+    d["dtype"] = _dtype_name(cfg.dtype)
+    return d
+
+
+def gnn_config_from_dict(d: Dict):
+    d = dict(d)
+    d["dtype"] = _DTYPES[_dtype_name(d["dtype"])]
+    return GNN_CONFIGS[d["name"]](**d)
+
+
+def gnn_params_from_numpy(tree: Dict, cfg, device=gs.DEFAULT_DEVICE) -> Dict:
+    return tree_map(lambda a: _tensor(a, cfg, device), tree)
+
+
+def gnn_params_to_numpy(params: Dict) -> Dict:
+    return tree_map(_arr, params)
+
+
 # ------------------------------------------------------- train state ---
 # A trainer's state goes across as {'params', 'opt', 'ef'} in the JAX
 # layout: 'opt' with fields m, v (f32 trees shaped as the params) and
 # count, 'ef' with field err (an f32 tree) or None; each read by attribute
 # (the JAX NamedTuples with numpy leaves) or by key.  The LM's m, v and err
-# stack their layers on [L] there, as its params do.  The seed ('rng') is
+# stack their layers on [L] there, as its params do; a GNN's and MIND's
+# are their params' trees in both packages.  The seed ('rng') is
 # each package's own and does not cross.
 
 def _field(x, name):
@@ -175,18 +212,21 @@ def _field(x, name):
 def _tree_from_numpy(tree, cfg, device):
     if isinstance(cfg, tf.LMConfig):
         return lm_params_from_numpy(tree, cfg, device)
+    if isinstance(cfg, GNN_CONFIG_TYPES):
+        return gnn_params_from_numpy(tree, cfg, device)
     return mind_params_from_numpy(tree, cfg, device)
 
 
 def _tree_to_numpy(tree) -> Dict:
-    return lm_params_to_numpy(tree) if "layers" in tree \
-        else mind_params_to_numpy(tree)
+    if isinstance(tree.get("layers"), list):  # the LM's per-layer dicts
+        return lm_params_to_numpy(tree)
+    return gnn_params_to_numpy(tree)
 
 
 def opt_state_from_numpy(opt, cfg, device=gs.DEFAULT_DEVICE
                          ) -> optimizer.OptState:
     """The port's OptState (m and v in f32) from the JAX one in numpy;
-    ``cfg`` is the model's (an LMConfig or a MINDConfig)."""
+    ``cfg`` is the model's (an LMConfig, a GNN config or a MINDConfig)."""
     f32 = dataclasses.replace(cfg, dtype=torch.float32)
     return optimizer.OptState(
         m=_tree_from_numpy(_field(opt, "m"), f32, device),

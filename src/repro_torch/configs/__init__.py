@@ -1,13 +1,14 @@
-"""Architecture registry of the port: the LM archs (dense and MoE), MIND
-and the paper's SMSCC engine config.  ``get(name)`` returns the module;
-each exposes FAMILY, SHAPES and config(), and the LM archs and MIND also
+"""Architecture registry of the port: the LM archs (dense and MoE), the
+four GNNs, MIND and the paper's SMSCC engine config.  ``get(name)``
+returns the module; each exposes FAMILY, SHAPES, config() and
 smoke_config()."""
 from __future__ import annotations
 
 import importlib
 
 ARCHS = ["moonshot_v1_16b_a3b", "qwen3_moe_235b_a22b", "h2o_danube_3_4b",
-         "qwen3_14b", "gemma3_12b", "mind", "smscc"]
+         "qwen3_14b", "gemma3_12b", "mace", "egnn", "nequip", "gatedgcn",
+         "mind", "smscc"]
 
 
 def get(name: str):

@@ -1,12 +1,14 @@
 """Deterministic, shard-aware synthetic data streams, as in
-``repro.data.pipeline``: the LM and recsys streams (the GNN streams wait
-for the GNN slice).
+``repro.data.pipeline``: the LM, GNN and recsys streams.
 
 Every source is a pure function of (seed, step, shard) -- no files, no
 state -- drawn from numpy's ``SeedSequence([seed, step, shard])``, the
 reference's own streams, so a batch holds the reference's integers
-exactly.  A checkpoint stores only the step cursor: resuming re-generates
-the identical batch sequence.  Batches are int32 tensors on ``device``.
+exactly (the GNN streams' floats too).  A checkpoint stores only the step
+cursor: resuming re-generates the identical batch sequence.  Batches are
+tensors on ``device``.  The sampled-block stream feeds the sampler from a
+``torch.Generator`` seeded with the reference's PRNG seed, so its
+neighbors differ from the reference's (``graph/sampler.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph_state import DEFAULT_DEVICE
+from repro_torch.graph import batching, sampler
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +59,110 @@ def lm_batch(vocab: int, batch: int, seq: int, step: int,
     return {"tokens": _int32(toks[:, :-1], device),
             "labels": _int32(toks[:, 1:], device)}
 
+
+# ------------------------------------------------------------------ GNN ---
+
+def _f32(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+
+def molecule_batch(n_graphs: int, n_nodes: int, n_edges: int, d_feat: int,
+                   step: int, info: ShardInfo = ShardInfo(), seed: int = 0,
+                   device=DEFAULT_DEVICE):
+    """Packed random molecules with a learnable energy (0.01 x the sum of
+    squared pairwise distances within each graph) and zero forces."""
+    g_local = n_graphs // info.n_shards
+    rng = _rng(seed, step, info.shard)
+    g = batching.pack_dense_batch(g_local, n_nodes, n_edges,
+                                  seed=int(rng.integers(0, 2 ** 31)),
+                                  device=device)
+    n = g_local * n_nodes
+    pos = rng.normal(size=(n, 3)).astype(np.float32)
+    x = rng.normal(size=(n, d_feat)).astype(np.float32)
+    energy = np.zeros(g_local, np.float32)
+    pos_r = pos.reshape(g_local, n_nodes, 3)
+    for i in range(g_local):
+        d = pos_r[i][:, None] - pos_r[i][None, :]
+        energy[i] = 0.01 * np.sum(d * d)
+    return {
+        "src": g.src, "dst": g.dst, "edge_mask": g.edge_mask,
+        "node_mask": g.node_mask.float(), "graph_id": g.graph_id,
+        "x": _f32(x, device), "pos": _f32(pos, device),
+        "energy": _f32(energy, device),
+        "forces": torch.zeros((n, 3), dtype=torch.float32, device=device),
+    }
+
+
+def node_class_graph(n_nodes: int, n_edges: int, d_feat: int,
+                     n_classes: int, seed: int = 0, device=DEFAULT_DEVICE):
+    """A fixed full-batch classification graph (Cora/products stand-in):
+    labels from a random linear probe of the features plus noise."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n_nodes, d_feat)).astype(np.float32)
+    w = rng.normal(size=(d_feat, n_classes)).astype(np.float32)
+    labels = np.argmax(x @ w + 0.5 * rng.normal(size=(n_nodes, n_classes)),
+                       axis=1)
+    src = rng.integers(0, n_nodes, n_edges)
+    dst = rng.integers(0, n_nodes, n_edges)
+    return {
+        "src": _int32(src, device), "dst": _int32(dst, device),
+        "edge_mask": torch.ones((n_edges,), dtype=torch.bool, device=device),
+        "node_mask": torch.ones((n_nodes,), dtype=torch.float32,
+                                device=device),
+        "graph_id": torch.zeros((n_nodes,), dtype=torch.int32,
+                                device=device),
+        "x": _f32(x, device),
+        "pos": _f32(rng.normal(size=(n_nodes, 3)), device),
+        "labels": _int32(labels, device),
+    }
+
+
+def sampled_block_batch(csr: sampler.CSRGraph, features: torch.Tensor,
+                        labels: torch.Tensor, batch_nodes: int, fanouts,
+                        step: int, info: ShardInfo = ShardInfo(),
+                        seed: int = 0, draws=None):
+    """minibatch_lg: seeds + fanout-sampled blocks flattened to one edge
+    list local to the minibatch (GraphSAGE-style), on ``features``'
+    device.  The neighbors come from ``draws`` (one int[n, fanout] per
+    layer) if given, else from a ``torch.Generator`` seeded with the
+    reference's PRNG seed."""
+    device = features.device
+    n_local = batch_nodes // info.n_shards
+    rng = _rng(seed, step, info.shard)
+    n_total = features.shape[0]
+    seeds = _int32(rng.integers(0, n_total, n_local), device)
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(0, 2 ** 31)))
+    blocks, inputs = sampler.sample_blocks(csr, seeds, list(fanouts),
+                                           generator=gen, draws=draws)
+    # union node set = all frontier nodes (dups fine); relabel locally
+    node_ids = torch.cat([inputs] + [b.src for b in blocks[1:]] + [seeds])
+    # one flat edge list over the concatenated node table, widest block
+    # first: src at [offset : offset+|src|], dst into the next segment
+    srcs, dsts = [], []
+    offset = 0
+    for b in blocks:
+        srcs.append(torch.arange(b.src.shape[0], dtype=torch.int32,
+                                 device=device) + offset)
+        nxt = offset + b.src.shape[0]
+        dsts.append(b.dst_local + nxt)
+        offset = nxt
+    src = torch.cat(srcs)
+    dst = torch.cat(dsts)
+    n = node_ids.shape[0]
+    ids = node_ids.long()
+    return {
+        "src": src, "dst": dst,
+        "edge_mask": torch.ones(src.shape, dtype=torch.bool, device=device),
+        "node_mask": torch.ones((n,), dtype=torch.float32, device=device),
+        "graph_id": torch.zeros((n,), dtype=torch.int32, device=device),
+        "x": features[ids],
+        "pos": torch.zeros((n, 3), dtype=torch.float32, device=device),
+        "labels": labels[ids],
+    }
+
+
+# --------------------------------------------------------------- recsys ---
 
 def mind_batch(n_items: int, batch: int, seq_len: int, profile_vocab: int,
                profile_len: int, n_neg: int, step: int,

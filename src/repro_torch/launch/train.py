@@ -5,15 +5,19 @@
         --device cpu
     python -m repro_torch.launch.train --arch moonshot-v1-16b-a3b --smoke \\
         --steps 8 --ckpt-dir /tmp/ckpt --compress-grads
+    python -m repro_torch.launch.train --arch egnn --smoke --steps 4 \\
+        --device cpu
 
 An LM arch trains on ``lm_batch`` streams (16 x 64 tokens with --smoke,
-else the reference's 256 x 4096 at the arch's full config), ``--arch
-mind`` on ``mind_batch`` streams (64 users with --smoke, else 65536), with
-the reference launcher's AdamW settings; a checkpoint every quarter of the
-run goes to ``--ckpt-dir``, from which a rerun resumes.  Without --smoke
-the full config runs, as the reference's does off the CPU.  The weights
-are random (a seeded generator).  Runs on ``cuda`` unless ``--device``
-says otherwise.
+else the reference's 256 x 4096 at the arch's full config), a GNN arch
+(egnn, gatedgcn, nequip, mace) on one node-classification graph (200
+nodes and 1000 edges with --smoke, else 4096 and 32768 with 64 features),
+``--arch mind`` on ``mind_batch`` streams (64 users with --smoke, else
+65536), with the reference launcher's AdamW settings; a checkpoint every
+quarter of the run goes to ``--ckpt-dir``, from which a rerun resumes.
+Without --smoke the full config runs, as the reference's does off the
+CPU.  The weights are random (a seeded generator).  Runs on ``cuda``
+unless ``--device`` says otherwise.
 """
 from __future__ import annotations
 
@@ -62,8 +66,23 @@ def _mind_setup(cfg, batch: int, device, seed: int = 0):
     return params, loss_fn, data_fn
 
 
-# the reference's gnn family, not ported yet
-GNN_ARCHS = ("egnn", "gatedgcn", "mace", "nequip")
+def _gnn_setup(mod, smoke: bool, device, seed: int = 0):
+    """(params, loss_fn, data_fn) of a GNN arch as the reference launcher
+    sets it up: node classification over 7 classes on one fixed
+    ``node_class_graph``; random weights from ``seed`` on ``device``."""
+    model = mod.MODULE
+    cfg = mod.smoke_config(task="node_class", n_classes=7) if smoke \
+        else mod.config(task="node_class", n_classes=7, d_feat=64)
+    graph = pipeline.node_class_graph(
+        200 if smoke else 4096, 1000 if smoke else 32768,
+        cfg.d_feat, cfg.n_classes, seed=0, device=device)
+    params = model.init(cfg, torch.Generator(device).manual_seed(seed),
+                        device)
+
+    def loss_fn(p, b):
+        return model.loss_fn(p, b, cfg)
+
+    return params, loss_fn, lambda step: graph
 
 
 def main():
@@ -78,9 +97,6 @@ def main():
     device = torch.device(args.device)
     # the reference trains the smoke config by default on the CPU
     smoke = args.smoke if args.smoke is not None else device.type == "cpu"
-    if args.arch in GNN_ARCHS:
-        raise SystemExit(f"--arch {args.arch}: the gnn family is not ported "
-                         f"yet (ROADMAP §1 item 2: GNN and data)")
     mod = configs.get(args.arch)
     if mod.FAMILY == "smscc":
         raise SystemExit("use examples/dynamic_scc_serving_torch.py for "
@@ -89,6 +105,8 @@ def main():
     if mod.FAMILY == "lm":
         batch, seq = (16, 64) if smoke else (256, 4096)
         params, loss_fn, data_fn = _lm_setup(cfg, batch, seq, device)
+    elif mod.FAMILY == "gnn":
+        params, loss_fn, data_fn = _gnn_setup(mod, smoke, device)
     else:  # recsys
         params, loss_fn, data_fn = _mind_setup(
             cfg, 64 if smoke else 65536, device)

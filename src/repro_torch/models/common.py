@@ -1,12 +1,15 @@
-"""Shared model primitives: RMSNorm, RoPE and initialisers, as in
-``repro.models.common``.  Initialisers draw from an explicit
+"""Shared model primitives: RMSNorm, RoPE, initialisers and the plain
+MLP, as in ``repro.models.common``.  Initialisers draw from an explicit
 ``torch.Generator`` (its numbers differ from ``jax.random``'s; tests carry
 one set of weights across with ``carry``)."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.tree import tree_leaves
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
@@ -48,3 +51,33 @@ def embed_init(gen: torch.Generator, shape: Sequence[int],
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=device)
     return w.mul_(shape[-1] ** -0.5).to(dtype)
+
+
+def mlp_init(gen: torch.Generator, sizes: Sequence[int], dtype=torch.float32,
+             bias: bool = True, device=None) -> list:
+    """Plain MLP params: a list of {'w', 'b'} between consecutive sizes
+    (``b`` zeros, or None without ``bias``)."""
+    return [{"w": dense_init(gen, (a, b), dtype=dtype, device=device),
+             "b": torch.zeros((b,), dtype=dtype, device=device)
+             if bias else None}
+            for a, b in zip(sizes[:-1], sizes[1:])]
+
+
+def mlp_apply(layers, x: torch.Tensor, act: Callable = F.silu,
+              final_act: Optional[Callable] = None) -> torch.Tensor:
+    """``act`` between the layers, ``final_act`` (if any) after the
+    last."""
+    n = len(layers)
+    for i, lyr in enumerate(layers):
+        x = x @ lyr["w"]
+        if lyr["b"] is not None:
+            x = x + lyr["b"]
+        if i < n - 1:
+            x = act(x)
+        elif final_act is not None:
+            x = final_act(x)
+    return x
+
+
+def count_params(params) -> int:
+    return sum(x.numel() for x in tree_leaves(params))

@@ -819,3 +819,96 @@ def test_flash_refuses_a_backward_on_card(cuda):
     assert bool(torch.isfinite(loss))
     with pytest.raises(RuntimeError, match="attn_impl='chunked'"):
         torch.autograd.grad(loss, leaves)
+
+
+def _gnn_smoke_batch(task, cfg, dev):
+    from repro_torch.data import pipeline
+
+    if task == "energy":
+        b = pipeline.molecule_batch(cfg.n_graphs, 6, 12, cfg.d_feat, step=0,
+                                    device=dev)
+    else:
+        b = pipeline.node_class_graph(60, 240, cfg.d_feat, cfg.n_classes,
+                                      seed=0, device=dev)
+    return {k: v.to(cfg.dtype) if v.is_floating_point() else v
+            for k, v in b.items()}
+
+
+@pytest.mark.parametrize("task", ["energy", "node_class"])
+@pytest.mark.parametrize("arch", ["egnn", "gatedgcn", "nequip", "mace"])
+def test_gnn_on_card_matches_cpu(cuda, arch, task):
+    """A GNN's smoke config (remat on) from one state on both devices: the
+    loss within 1e-5 relative, every gradient leaf and every parameter
+    after one Trainer step within rtol 2e-4 / atol 2e-5.  f32 with TF32
+    off, except MACE's energy task in f64 (its f32 gradients stand over
+    10x the tolerance from its own f64 answer on one device)."""
+    from repro_torch import carry, configs
+    from repro_torch.optim import optimizer
+    from repro_torch.train import trainer
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mod = configs.get(arch)
+    f64 = arch == "mace" and task == "energy"
+    cfg = mod.smoke_config(task=task, n_classes=3, remat=True,
+                           dtype=torch.float64 if f64 else torch.float32)
+    tree = carry.gnn_params_to_numpy(mod.MODULE.init(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        batch = _gnn_smoke_batch(task, cfg, dev)
+        t = trainer.Trainer(
+            lambda p, b: mod.MODULE.loss_fn(p, b, cfg),
+            carry.gnn_params_from_numpy(tree, cfg, dev),
+            optimizer.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=1),
+            trainer.TrainerConfig(total_steps=1), lambda s: batch)
+        loss, _, grads = t.value_and_grad(t.state["params"], batch)
+        t.run()
+        runs.append((float(loss), [g.cpu() for g in tree_leaves(grads)],
+                     [p.detach().cpu()
+                      for p in tree_leaves(t.state["params"])]))
+    (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = runs
+    assert l_card == pytest.approx(l_cpu, rel=1e-5)
+    for got, want in zip(g_card + p_card, g_cpu + p_cpu):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_sampler_on_card_matches_cpu(cuda):
+    """The CSR build and the sampled block batch, fed the same draws: the
+    card's arrays equal the CPU's exactly."""
+    from repro_torch.data import pipeline
+    from repro_torch.graph import sampler
+
+    g = torch.Generator().manual_seed(0)
+    draws, n = [], 64
+    for f in (15, 10):
+        draws.append(torch.randint(0, sampler.DRAW_HIGH, (n, f),
+                                   generator=g))
+        n *= f
+    feats = torch.randn((3000, 5), generator=g)
+    labels = torch.randint(0, 4, (3000,), generator=g, dtype=torch.int32)
+    got = []
+    for dev in (torch.device("cpu"), cuda):
+        csr = sampler.make_synthetic_csr(3000, 25, seed=2, device=dev)
+        b = pipeline.sampled_block_batch(csr, feats.to(dev), labels.to(dev),
+                                         64, (15, 10), step=1, draws=draws)
+        got.append([csr.indptr.cpu(), csr.indices.cpu()] +
+                   [b[k].cpu() for k in sorted(b)])
+    for a, b in zip(*got):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_launch_train_gnn_on_card(cuda):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "egnn",
+         "--smoke", "--steps", "4", "--device", "cuda"], cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "done: 4 steps" in out.stdout and "on cuda" in out.stdout

@@ -260,7 +260,14 @@ def test_port_imports_nothing_of_jax():
                 "configs/mind.py", "configs/moonshot_v1_16b_a3b.py",
                 "configs/qwen3_moe_235b_a22b.py", "data/pipeline.py",
                 "optim/optimizer.py", "optim/compression.py",
-                "train/trainer.py", "launch/train.py", "tree.py"):
+                "train/trainer.py", "launch/train.py", "tree.py",
+                "graph/batching.py", "graph/sampler.py",
+                "models/gnn/common.py", "models/gnn/tasks.py",
+                "models/gnn/egnn.py", "models/gnn/gatedgcn.py",
+                "models/gnn/nequip.py", "models/gnn/mace.py",
+                "configs/egnn.py", "configs/gatedgcn.py",
+                "configs/nequip.py", "configs/mace.py",
+                "configs/gnn_shapes.py", "carry.py"):
         assert port / rel in files, rel
     for path in files:
         for mod in _imports(path):
