@@ -141,9 +141,12 @@ Phases, each printing one line or more:
    size) and minibatch_lg (a Reddit-sized CSR of ~1.146e8 edges and a
    232965 x 602 feature table on the card, 1024 seeds sampled at fanouts
    15, 10 a step), 4 steps each; and nequip alone on ogb_products
-   (2449029 nodes, 61859140 edges) with its chunked-edge convolution in
-   64 chunks, 2 steps (``reduced`` gives why 64, not build_gnn's 32, and
-   the memory reckoning that keeps the other three off one card).  One
+   (2449029 nodes, 61859140 edges + 60 masked) with its chunked-edge
+   convolution in ``launch.steps.build_gnn``'s 32 chunks, 2 steps, in a
+   child process with the allocator's expandable segments on for that
+   cell alone, its reserve held under 80 GB (``reduced`` gives the
+   padding and the memory reckoning that keeps the other three off one
+   card).  One
    ``train_gnn`` line a run: median step time, graphs/s, nodes/s or
    seeds/s, the batch's making (sampling included) apart, peak memory
    allocated and reserved, ``model_flops_share`` (the reference's
@@ -159,7 +162,22 @@ Phases, each printing one line or more:
    chunked against unchunked on the card (rtol 1e-5 / atol 1e-6
    energies, rtol 2e-3 / atol 1e-5 first-order gradients); the sampler
    on the card equal to the CPU's given the same draws;
-20. the kernels line (JSON; frontier_min and hash_probe also carry their
+20. the launch layer (``bundle_path``): ``launch.steps.build``'s bundles
+   on ``make_host_mesh()`` (one card, a 1x1 mesh) at the configs' own
+   shapes: smscc:update_1m (2^20 vertices, 2^23 slots, batches of 8192)
+   and smscc:update_16m (2^24 vertices, 2^26 slots, batches of 65536),
+   each booted with update_1m's out-degree-2 preload and 4 batches of
+   the paper's mix, then smscc:community_query (262144 pairs) and
+   mind:serve_p99 (512 x 2048 candidates on the 2^21-row table): each
+   result equal to the port's function called directly on the same
+   inputs (the bundle's plumbing), the SMSCC labels a static recompute,
+   one MIND request the scores through the bag's plain version (1e-5),
+   frontier_min, hash_probe and embedding_bag launched; step time, ops/s and peak memory; then
+   ``reach_blockmm.frontier_step`` / ``closure`` on the card against
+   their plain forms exactly (one bool_matmul launch a product), and one
+   dry-run cell (smscc:update_1m on 16x16) in a child process with its
+   own fake process group of 256 ranks, its record printed;
+21. the kernels line (JSON; frontier_min and hash_probe also carry their
    tenant-row form under ``lanes``; flash and the bag their launches on
    each path under ``launches_by_path``, flash its MoE-shape rows under
    ``moe_shapes``, the bag its training-shape row, forward and backward,
@@ -1449,19 +1467,6 @@ def launcher_opt(steps: int) -> dict:
     return dict(lr=1e-3, warmup_steps=10, total_steps=steps)
 
 
-def lm_model_flops(cfg, batch: int, seq: int) -> int:
-    """Useful FLOPs of one training step, by the reference's formula
-    (``repro/launch/steps.py`` ``lm_model_flops``, kind ``train``, copied):
-    6 x active params x tokens, plus causal attention's QK^T and PV (2
-    matmuls, 2 flops a MAC, ~seq x eff / 2 pairs) x 3 for the forward and
-    the backward."""
-    attn = 0
-    for w in cfg.windows:
-        eff = seq if w == 0 else min(seq, w)
-        attn += 3 * 4 * batch * cfg.n_heads * cfg.head_dim * (seq * eff // 2)
-    return 6 * cfg.n_active_params() * batch * seq + attn
-
-
 def grads_nonzero(torch, trainer, batch) -> dict:
     """Key path -> whether step 1's gradient of that leaf is nonzero,
     through the trainer's own forward and backward (one host read)."""
@@ -1509,7 +1514,8 @@ def train_lm_path(torch, dev, cfg, *, batch=2, seq=4096, steps=6,
     launches = kernels.launch_counts()
     losses = [m["loss"] for _, m in log]
     med = sorted(t.step_times)[len(t.step_times) // 2]
-    flops = lm_model_flops(cfg, batch, seq)
+    from repro_torch.launch import steps as steps_lib
+    flops = steps_lib.lm_model_flops(cfg, "train", batch, seq)
     rep = {"arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model,
            "n_params": sum(p.numel() for p in tree_leaves(setup[0])),
@@ -1719,30 +1725,6 @@ def flash_grad_refusal(torch, dev) -> dict:
 GNN_ARCHS = ("egnn", "gatedgcn", "nequip", "mace")
 
 
-def gnn_model_flops(arch: str, cfg, n_nodes: int, n_edges: int) -> int:
-    """Useful FLOPs of one GNN training step, by the reference's formula
-    (``repro/launch/steps.py`` ``gnn_model_flops``, copied): the forward's
-    per-edge and per-node matmul and tensor-product work per family, x 3
-    for the forward and the backward."""
-    c = cfg.d_hidden
-    if arch == "gatedgcn":
-        fwd = n_edges * (3 * 2 * c * c) + n_nodes * (2 * 2 * c * c)
-        fwd *= cfg.n_layers
-    elif arch == "egnn":
-        fwd = n_edges * (2 * (2 * c + 1) * c + 2 * c * c + 2 * c * c) + \
-            n_nodes * (2 * 2 * c * c)
-        fwd *= cfg.n_layers
-    else:  # nequip / mace: radial MLP + per-path TP + mixing
-        n_paths = 15 if cfg.l_max >= 2 else (4 if cfg.l_max == 1 else 1)
-        tp_cost = n_edges * n_paths * c * 18     # avg contraction cost
-        radial = n_edges * 2 * (cfg.n_rbf * 32 + 32 * n_paths * c)
-        mix = n_nodes * (cfg.l_max + 1) * 2 * c * c * 9
-        fwd = (tp_cost + radial + mix) * cfg.n_layers
-        if arch == "mace":
-            fwd += cfg.n_layers * n_nodes * 2 * n_paths * c * 18  # B-products
-    return 3 * fwd
-
-
 def gnn_zero_grad_prefixes(arch: str, task: str, pos_zero: bool) -> tuple:
     """Key-path prefixes of the leaves whose step-1 gradient the
     reference's own loss leaves zero.  MACE's energy is the sum of its
@@ -1844,7 +1826,8 @@ def train_gnn_run(torch, dev, arch, shape_name, cfg, data_fn, *, steps,
     log = t.run()
     losses = [m["loss"] for _, m in log]
     med = sorted(t.step_times)[len(t.step_times) // 2]
-    flops = gnn_model_flops(arch, cfg, n_nodes, n_edges)
+    from repro_torch.launch import steps as steps_lib
+    flops = steps_lib.gnn_model_flops(arch, cfg, n_nodes, n_edges)
     prefixes = gnn_zero_grad_prefixes(arch, cfg.task, pos_zero)
     zero = sorted(k for k, f in nonzero.items() if not f)
     want_zero = sorted(k for k in nonzero if k.startswith(prefixes))
@@ -1885,13 +1868,13 @@ def train_gnn_run(torch, dev, arch, shape_name, cfg, data_fn, *, steps,
     return rep
 
 
-# build_gnn streams E // 32 edges a chunk above 2^22 edges; on one card
-# the allocator's peak reserve at 32 chunks passed 80 GB (83.1 GB of the
-# H100's 85.0), so ogb_products runs 64 (``reduced`` says so)
-OGB_CHUNKS = 64
+# ogb_products' edges are padded with masked edges to a multiple of 64
+# (60 of them), which build_gnn's 32 chunks divide
+OGB_PAD = 64
 
 
-def gnn_shape_data(torch, dev, name: str, shape: dict) -> dict:
+def gnn_shape_data(torch, dev, name: str, shape: dict,
+                   chunks: int = 0) -> dict:
     """One of the reference's GNN shapes on ``dev``: ``data_fn`` (step ->
     batch), the batch's node and edge counts, the rate a run reports
     (name, items a step), whether every position is zero, the config's
@@ -1939,12 +1922,12 @@ def gnn_shape_data(torch, dev, name: str, shape: dict) -> dict:
         if name == "ogb_products":
             # pad with masked edges so the chunk count divides the edges,
             # as build_gnn's padding to the mesh's size does on a pod
-            pad = -n_edges % OGB_CHUNKS
+            pad = -n_edges % OGB_PAD
             for k, fill in (("src", 0), ("dst", 0), ("edge_mask", False)):
                 graph[k] = torch.cat([graph[k], torch.full(
                     (pad,), fill, dtype=graph[k].dtype, device=dev)])
             n_edges += pad
-            out["cfg_kw"] = {"edge_chunk": n_edges // OGB_CHUNKS}
+            out["cfg_kw"] = {"edge_chunk": n_edges // chunks}
             out["info"]["padded_edges"] = pad
         sync(torch, dev)
         out["info"]["graph_build_s"] = time.perf_counter() - t0
@@ -1960,7 +1943,9 @@ def train_gnn_path(torch, dev, *, steps=4, ogb_steps=2, shapes=None,
     forces), full_graph_sm and minibatch_lg (node classification; the
     Reddit-sized CSR and feature table on the card, 1024 seeds sampled at
     fanouts 15, 10 each step), and nequip alone on ogb_products with its
-    chunked-edge convolution.  One ``train_gnn`` line per run."""
+    chunked-edge convolution (a child process, ``ogb_nequip``).  A name
+    missing from ``shapes`` is not run.  One ``train_gnn`` line per
+    run."""
     from repro_torch import configs
     from repro_torch.configs import gnn_shapes
 
@@ -1970,38 +1955,92 @@ def train_gnn_path(torch, dev, *, steps=4, ogb_steps=2, shapes=None,
     reps = []
     for name in ("molecule", "full_graph_sm", "minibatch_lg",
                  "ogb_products"):
-        shape = shapes[name]
-        run_archs = [a for a in archs
-                     if name != "ogb_products" or a == "nequip"]
-        if not run_archs:
+        if name not in shapes:
             continue
+        if name == "ogb_products":
+            if "nequip" in archs:
+                reps.append(ogb_nequip(torch, dev, ogb_steps))
+            continue
+        shape = shapes[name]
         data = gnn_shape_data(torch, dev, name, shape)
         emit("gnn_shape", shape=name, **data["info"])
-        for arch in run_archs:
+        for arch in archs:
             cfg = gnn_full_config(configs.get(arch), shape, **data["cfg_kw"])
-            reduced = None
-            if name == "ogb_products":
-                reduced = {"archs": ogb_cuts(shape["n_nodes"],
-                                             shape["n_edges"]),
-                           "edges": f"{shape['n_edges']} + "
-                                    f"{data['info']['padded_edges']} masked "
-                                    f"edges, so that {OGB_CHUNKS} chunks of "
-                                    f"{cfg.edge_chunk} divide them "
-                                    f"(build_gnn pads to the mesh's size)",
-                           "edge_chunk": "E // 32 -> E // 64: at build_gnn's "
-                                         "32 chunks the allocator's peak "
-                                         "reserve passed 80 GB (83.1 GB of "
-                                         "the card's 85.0)"}
             rep = train_gnn_run(
-                torch, dev, arch, name, cfg, data["data_fn"],
-                steps=ogb_steps if name == "ogb_products" else steps,
+                torch, dev, arch, name, cfg, data["data_fn"], steps=steps,
                 n_nodes=data["n_nodes"], n_edges=data["n_edges"],
-                rate=data["rate"], pos_zero=data["pos_zero"],
-                reduced=reduced)
+                rate=data["rate"], pos_zero=data["pos_zero"])
             emit("train_gnn", **rep)
             reps.append(rep)
         del data
     return reps
+
+
+def ogb_nequip(torch, dev, steps: int) -> dict:
+    """nequip on ogb_products in a child process (``--ogb-nequip``) with
+    the allocator's expandable segments on for that cell alone, so the
+    other phases' memory stays comparable; build_gnn's chunk count on
+    this card's mesh, run once.  The child fails if its reserve reaches
+    80 GB (``train_gnn_run``), and so does this phase.  This process
+    hands its cached memory back first: the child needs ~79 GB of the
+    card's 85.  The child's lines pass through."""
+    import os
+    torch.cuda.empty_cache()
+    emit("ogb_nequip_start",
+         parent_allocated_bytes=torch.cuda.memory_allocated(dev),
+         parent_reserved_bytes=torch.cuda.memory_reserved(dev))
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    r = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--ogb-nequip",
+         str(steps)], capture_output=True, text=True, env=env, timeout=900)
+    sys.stdout.write(r.stdout)
+    sys.stdout.flush()
+    runs = [json.loads(x) for x in r.stdout.splitlines()
+            if x.startswith('{"phase": "train_gnn"')]
+    if r.returncode != 0 or not runs:
+        emit("ogb_nequip_failed", returncode=r.returncode,
+             stderr_tail=r.stderr[-3000:])
+        check(False, f"nequip on ogb_products at build_gnn's chunks "
+                     f"failed: rc {r.returncode}")
+    return runs[-1]
+
+
+def ogb_nequip_child(steps: int) -> int:
+    """The ogb_products cell alone (run by ``ogb_nequip``): the edge chunk
+    from ``steps.build_gnn`` on the host mesh (one card)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs import gnn_shapes
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    shape = gnn_shapes.gnn_shapes()["ogb_products"]
+    bundle = steps_lib.build("nequip", "ogb_products",
+                             mesh_lib.make_host_mesh())
+    n = bundle.meta["edge_chunks"]
+    data = gnn_shape_data(torch, dev, "ogb_products", shape, chunks=n)
+    emit("gnn_shape", shape="ogb_products", build_gnn=bundle.meta,
+         alloc_conf="expandable_segments:True", **data["info"])
+    cfg = gnn_full_config(configs.get("nequip"), shape, **data["cfg_kw"])
+    reduced = {"archs": ogb_cuts(shape["n_nodes"], shape["n_edges"]),
+               "edges": f"{shape['n_edges']} + "
+                        f"{data['info']['padded_edges']} masked edges (a "
+                        f"multiple of {OGB_PAD}), so that {n} chunks of "
+                        f"{cfg.edge_chunk} divide them; build_gnn pads to "
+                        f"the mesh's size (61859328 on 16x16; on one card "
+                        f"{bundle.meta['edges']}, which {n} does not "
+                        f"divide)"}
+    rep = train_gnn_run(
+        torch, dev, "nequip", "ogb_products", cfg, data["data_fn"],
+        steps=steps, n_nodes=data["n_nodes"], n_edges=data["n_edges"],
+        rate=data["rate"], pos_zero=data["pos_zero"], reduced=reduced)
+    rep["edge_chunks"] = n
+    emit("train_gnn", **rep)
+    torch.distributed.destroy_process_group()
+    return 0
 
 
 def gnn_logits(arch, model, params, batch, cfg):
@@ -2172,6 +2211,228 @@ def gnn_card_vs_cpu(torch, dev) -> dict:
 
 BASELINE_RUNS = ("apply_batch", "sequential_apply", "coarse_apply",
                  "static_per_batch_apply")
+
+
+# ------------------------------------------------------------ phase 20 ---
+
+def _same(torch, a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def bundle_path(torch, dev, *, shapes=("update_1m", "update_16m"),
+                n_steps=4, preload_deg=2, mind_requests=4) -> dict:
+    """The launch layer's step bundles (``launch.steps.build``) on the
+    host mesh (``make_host_mesh``: one card, 1x1), run at the configs' own
+    shapes: smscc's update cells (booted with update_1m's preload degree,
+    ``n_steps`` batches of the paper's mix), community_query on the last
+    update state, MIND's serve_p99.  Each bundle's result must equal the
+    port's function called directly on the same inputs (a check of the
+    bundle's plumbing), and against an independent reference: the SMSCC
+    labels a static recompute, the query a plain expression, one MIND
+    request the scores with the bag's plain version; the launch counts
+    are set to 0 before each bundle's run and read after it."""
+    import numpy as np
+
+    from repro_torch import configs, kernels
+    from repro_torch.core import community, dynamic
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.graph import segment_ops as so
+    from repro_torch.kernels.embedding_bag import ref as eref
+    from repro_torch.launch import workload
+    from repro_torch.models.recsys import mind
+    from repro_torch.tree import tree_map
+
+    mesh = mesh_lib.make_host_mesh(device_type=dev.type)
+    check(tuple(mesh.shape) == (1, 1), f"host mesh {mesh}")
+    smscc = configs.get("smscc")
+    out = {"mesh": f"{mesh.shape}", "cells": {}}
+    state = cfg = None
+    for name in shapes:
+        b = steps_lib.build("smscc", name, mesh)
+        shape = smscc.SHAPES[name]
+        cfg = smscc.config(n_vertices=shape["n_vertices"],
+                           edge_capacity=shape["edge_capacity"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, n_pre = boot_state(torch, dev, cfg, preload_deg)
+        sync(torch, dev)
+        boot_s = time.perf_counter() - t0
+        ops = [tree_map(lambda x: x.to(dev), workload.op_stream(
+            cfg.n_vertices, shape["batch"], step=s, add_frac=0.7,
+            seed=SEED)) for s in range(n_steps)]
+        direct = tree_map(torch.clone, state)
+        kernels.reset_launch_counts()
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        oks = []
+        for o in ops:
+            state, ok = b.fn(state, o)
+            oks.append(ok)
+        sync(torch, dev)
+        run_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        same = True
+        for o, ok in zip(ops, oks):
+            direct, want = dynamic.apply_batch(direct, o, cfg)
+            same = same and torch.equal(ok, want)
+        same = same and _same(torch, state, direct)
+        labels_ok = torch.equal(dynamic.recompute(state, cfg).ccid,
+                                state.ccid)
+        rep = {"n_vertices": cfg.n_vertices,
+               "edge_capacity": cfg.edge_capacity, "batch": shape["batch"],
+               "steps": n_steps, "preloaded_edges": n_pre,
+               "boot_s": boot_s, "step_s": run_s / n_steps,
+               "ops_per_s": shape["batch"] * n_steps / run_s,
+               "peak_mem_bytes": peak, "launches": launches,
+               "equals_direct": same, "labels_equal_recompute": labels_ok,
+               "meta": b.meta}
+        out["cells"][name] = rep
+        emit("bundle", cell=f"smscc:{name}", **rep)
+        check(same, f"smscc:{name}: the bundle differs from apply_batch")
+        check(labels_ok, f"smscc:{name}: labels differ from a recompute")
+        for k in ("frontier_min", "hash_probe"):
+            check(launches[k] > 0, f"smscc:{name}: {k} never launched")
+        if name != shapes[-1]:
+            del state, direct, ops
+    # community_query: 262144 (u, v) pairs against the last update state
+    name = "community_query"
+    b = steps_lib.build("smscc", name, mesh)
+    q = smscc.SHAPES[name]["batch"]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    u, v = (torch.randint(0, cfg.n_vertices, (q,), generator=g, device=dev,
+                          dtype=torch.int32) for _ in range(2))
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    got = b.fn(state, u, v)
+    sync(torch, dev)
+    run_s = time.perf_counter() - t0
+    want = community.check_scc(state, u, v)
+    plain = (state.v_alive[u.long()] & state.v_alive[v.long()]
+             & (state.ccid[u.long()] == state.ccid[v.long()]))
+    rep = {"queries": q, "n_vertices": cfg.n_vertices, "step_s": run_s,
+           "queries_per_s": q / run_s, "same_scc": int(got.sum()),
+           "equals_direct": bool(torch.equal(got, want)),
+           "equals_plain": bool(torch.equal(got, plain)), "meta": b.meta}
+    out["cells"][name] = rep
+    emit("bundle", cell=f"smscc:{name}", **rep)
+    check(rep["equals_direct"] and rep["equals_plain"],
+          "smscc:community_query differs from check_scc")
+    del state, u, v, got, want, plain
+    torch.cuda.empty_cache()
+    # mind:serve_p99 on the full 2^21-row table
+    name = "serve_p99"
+    b = steps_lib.build("mind", name, mesh)
+    mcfg = configs.get("mind").config(scan_unroll=True)
+    shape = configs.get("mind").SHAPES[name]
+    params = mind.init(mcfg, torch.Generator(dev).manual_seed(SEED), dev)
+    rng = np.random.default_rng(SEED)
+
+    def ids(lo, hi, size):
+        return torch.as_tensor(rng.integers(lo, hi, size), dtype=torch.int32,
+                               device=dev)
+
+    reqs = [{"behavior": ids(-1, mcfg.n_items, (shape["batch"],
+                                                 mcfg.seq_len)),
+             "profile": ids(-1, mcfg.profile_vocab,
+                            (shape["batch"], mcfg.profile_len)),
+             "candidates": ids(0, mcfg.n_items, (shape["batch"],
+                                                 shape["n_cand"]))}
+            for _ in range(mind_requests)]
+    b.fn(params, reqs[0])
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    scores = [b.fn(params, r) for r in reqs]
+    sync(torch, dev)
+    run_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    same = all(torch.equal(s, mind.serve_score(params, r, mcfg))
+               for s, r in zip(scores, reqs))
+    # an independent reference for the kernel's part: one request scored
+    # with the bag's plain version (kernels/embedding_bag/ref) on the same
+    # card tensors, at the bag's tolerance
+    bag = so.bag_ops.embedding_bag
+    so.bag_ops.embedding_bag = eref.embedding_bag
+    try:
+        plain = mind.serve_score(params, reqs[0], mcfg)
+    finally:
+        so.bag_ops.embedding_bag = bag
+    plain_err = float((scores[0] - plain).abs().max())
+    plain_ok = bool(torch.allclose(scores[0], plain, rtol=1e-5, atol=1e-5))
+    rep = {"requests": mind_requests, "batch": shape["batch"],
+           "n_cand": shape["n_cand"], "step_s": run_s / mind_requests,
+           "scores_per_s": mind_requests * shape["batch"] * shape["n_cand"]
+           / run_s, "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+           "launches": launches, "equals_direct": same,
+           "plain_bag_tolerance": 1e-5, "plain_bag_max_abs_err": plain_err,
+           "equals_plain_bag": plain_ok,
+           "finite": all(bool(torch.isfinite(s).all()) for s in scores),
+           "meta": b.meta}
+    out["cells"]["mind:" + name] = rep
+    emit("bundle", cell=f"mind:{name}", **rep)
+    check(same and rep["finite"], "mind:serve_p99 differs from serve_score")
+    check(plain_ok, f"mind:serve_p99 differs from the plain bag's scores "
+                    f"by {plain_err}")
+    check(launches["embedding_bag"] == mind_requests,
+          f"mind:serve_p99: the bag launched {launches['embedding_bag']} "
+          f"times for {mind_requests} requests")
+    return out
+
+
+def blockmm_steps_check(torch, dev, n=512) -> dict:
+    """``reach_blockmm.ops.frontier_step`` and ``closure`` on the card
+    (each product one bool_matmul launch) against their plain forms on
+    the CPU, exactly."""
+    from repro_torch import kernels
+    from repro_torch.kernels.reach_blockmm import ops as bops
+    from repro_torch.kernels.reach_blockmm import ref as bref
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    adj = torch.rand((n, n), generator=g, device=dev) < 4.0 / n
+    f = torch.rand((n, 32), generator=g, device=dev) < 0.02
+    kernels.reset_launch_counts()
+    step = bops.frontier_step(adj, f)
+    clo = bops.closure(adj)
+    sync(torch, dev)
+    launches = kernels.launch_counts()["bool_matmul"]
+    rep = {"n": n, "launches": launches,
+           "frontier_step_equal": bool(torch.equal(
+               step.cpu(), bref.frontier_step(adj.cpu(), f.cpu()))),
+           "closure_equal": bool(torch.equal(clo.cpu(),
+                                             bref.closure(adj.cpu()))),
+           "closure_true": int(clo.sum())}
+    check(rep["frontier_step_equal"] and rep["closure_equal"],
+          f"frontier_step / closure differ from their plain forms: {rep}")
+    check(launches == 1 + max(1, (n - 1).bit_length()),
+          f"bool_matmul launched {launches} times")
+    return rep
+
+
+def dryrun_cell(arch="smscc", shape="update_1m") -> dict:
+    """One dry-run cell on the 16x16 mesh in a child process with its own
+    fake process group of 256 ranks; its record."""
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "dryrun.jsonl")
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", out], capture_output=True,
+            text=True, timeout=600, cwd=str(ROOT),
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        check(r.returncode == 0, f"dry-run failed: {r.stderr[-2000:]}")
+        with open(out) as fh:
+            rec = json.loads(fh.readline())
+    check(rec["status"] == "ok", f"dry-run cell: {rec}")
+    return rec
 
 
 def baselines_path(torch, dev, nv=2 ** 14, cap=2 ** 16, b=256) -> dict:
@@ -3099,6 +3360,18 @@ def main() -> int:
     t0 = time.perf_counter()
     gnn_cmp = gnn_card_vs_cpu(torch, dev)
     emit("gnn_card_vs_cpu", seconds=time.perf_counter() - t0, **gnn_cmp)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    bundles = bundle_path(torch, dev)
+    emit("bundles", seconds=time.perf_counter() - t0,
+         mesh=bundles["mesh"], cells=sorted(bundles["cells"]))
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit("blockmm_steps", **blockmm_steps_check(torch, dev))
+    t0 = time.perf_counter()
+    rec = dryrun_cell()
+    emit("dryrun_cell", seconds=time.perf_counter() - t0, record=rec)
 
     # hash_probe: the insert entry's launches, the form its entry times;
     # all three entries' launches stand beside them.  flash and the bag:
@@ -3154,6 +3427,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--ogb-nequip"]:
+            sys.exit(ogb_nequip_child(int(sys.argv[2])))
         sys.exit(main())
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)

@@ -169,7 +169,7 @@ def mind_params_to_numpy(params: mind.Params) -> Dict:
 # dicts and lists (an MLP is a list of {'w', 'b'}), the 'layers' subtree's
 # leaves stacked on a leading [n_layers] axis.  Its config is the
 # dataclass's dict; 'name' says which of the four it is, and the mesh axes
-# must be None (the port has no mesh).
+# are names, tuples of names or None in both.
 
 GNN_CONFIGS = {c.name: c for c in (egnn.EGNNConfig, gatedgcn.GatedGCNConfig,
                                     nequip.NequIPConfig, mace.MACEConfig)}

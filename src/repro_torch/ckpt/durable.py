@@ -80,9 +80,12 @@ def snap_dir(directory: str) -> str:
 
 def _cfg_meta(cfg: gs.GraphConfig) -> dict:
     d = dataclasses.asdict(cfg)
-    # label_spec (always None in the port) goes last, as the JAX package
-    # writes it, so both packages' meta blobs are the same bytes
-    d["label_spec"] = d.pop("label_spec")
+    # label_spec goes last, as the JAX package writes it, so both
+    # packages' meta blobs are the same bytes; a mesh is not serialized
+    if d.pop("label_spec") is not None:
+        raise ValueError("durable snapshots do not serialize label_spec "
+                         "meshes")
+    d["label_spec"] = None
     d["region_edge_buckets"] = list(cfg.region_edge_buckets)
     return d
 

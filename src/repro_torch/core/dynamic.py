@@ -164,12 +164,14 @@ def apply_batch_stats(state: gs.GraphState, ops: OpBatch,
         if cfg.fuse_fwbw:
             fw, bw, _ = reach.fused_fw_bw_reach(
                 src, dst, live, seed_f, seed_b, v_alive, cfg.max_inner,
-                impl=cfg.sparse_impl)
+                spec=cfg.label_spec, impl=cfg.sparse_impl)
         else:
             fw, _ = reach.forward_reach(src, dst, live, seed_f, v_alive,
-                                        cfg.max_inner, impl=cfg.sparse_impl)
+                                        cfg.max_inner, spec=cfg.label_spec,
+                                        impl=cfg.sparse_impl)
             bw, _ = reach.backward_reach(src, dst, live, seed_b, v_alive,
-                                         cfg.max_inner, impl=cfg.sparse_impl)
+                                         cfg.max_inner, spec=cfg.label_spec,
+                                         impl=cfg.sparse_impl)
         region = (m_del | (fw & bw)) & v_alive
         region_v, region_e = SYNCS.ints(
             region.sum(), (live & region[src] & region[dst]).sum())
@@ -190,6 +192,7 @@ def apply_batch_stats(state: gs.GraphState, ops: OpBatch,
             lab = scc.scc_static(src, dst, live, region,
                                  max_outer=cfg.max_outer,
                                  max_inner=cfg.max_inner,
+                                 spec=cfg.label_spec,
                                  shortcut=cfg.shortcut, impl=cfg.sparse_impl)
         return (torch.where(region, lab, ccid),
                 RepairStats(tier, region_v, region_e))
@@ -235,7 +238,8 @@ def recompute(state: gs.GraphState, cfg: gs.GraphConfig) -> gs.GraphState:
     src, dst, live = gs.edge_coo(state)
     lab = scc.scc_static(src, dst, live, state.v_alive,
                          max_outer=cfg.max_outer, max_inner=cfg.max_inner,
-                         shortcut=cfg.shortcut, impl=cfg.sparse_impl)
+                         spec=cfg.label_spec, shortcut=cfg.shortcut,
+                         impl=cfg.sparse_impl)
     ccid = torch.where(state.v_alive, lab, cfg.n_vertices)
     return gs.recount_ccs(state._replace(ccid=ccid, gen=state.gen + 1))
 

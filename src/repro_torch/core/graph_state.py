@@ -48,8 +48,8 @@ class GraphConfig:
     ``dense_matmul_impl`` and ``sparse_impl`` are kept for that reason
     only: the port picks the plain version for CPU tensors and the CUDA
     kernel for CUDA tensors, and a plain impl ('xla', 'pallas_interpret')
-    asked for on CUDA tensors raises.  ``label_spec`` shards label arrays
-    across a mesh; the port runs on one device and requires None.
+    asked for on CUDA tensors raises.  ``label_spec`` pins the label
+    arrays' sharding inside the fixpoints (``sharding.constrain``).
     """
 
     n_vertices: int
@@ -81,9 +81,6 @@ class GraphConfig:
             if getattr(self, name) not in ("auto", "pallas",
                                            "pallas_interpret", "xla"):
                 raise ValueError(f"{name}={getattr(self, name)!r}")
-        if self.label_spec is not None:
-            raise ValueError("label_spec shards across a mesh; the port "
-                             "runs on one device")
 
 
 class GraphState(NamedTuple):

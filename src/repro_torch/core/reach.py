@@ -31,6 +31,7 @@ import torch
 from repro_torch.core.sync import SYNCS
 from repro_torch.kernels.frontier_expand import ops as frontier
 from repro_torch.kernels.u32 import mul32
+from repro_torch.sharding import constrain, lead
 
 SENT_WORD = frontier.SENT_WORD  # SENTINEL as a 32-bit word
 INT32_MAX = 2 ** 31 - 1
@@ -75,9 +76,22 @@ def _freeze(active, new, old):
     return torch.where(active.view(-1, *([1] * (new.dim() - 1))), new, old)
 
 
-def _fix(src):
-    """The fixpoint driver for these edges: tenant lanes for [T, C]."""
-    return _fixpoint_lanes if src.dim() == 2 else _fixpoint
+def _fix(src, spec=None):
+    """The fixpoint loop for these edges: tenant lanes for [T, C]; each
+    round's state pinned to ``spec`` (``GraphConfig.label_spec``, behind
+    the lane axis for lanes)."""
+    drive = _fixpoint_lanes if src.dim() == 2 else _fixpoint
+    if spec is None:
+        return drive
+    if src.dim() == 2:
+        spec = lead(spec)
+
+    def pinned(body, init, max_iters: int):
+        def step(state):
+            nxt, ch = body(state)
+            return constrain(nxt, spec), ch
+        return drive(step, constrain(init, spec), max_iters)
+    return pinned
 
 
 def _changed(new, old, src):
@@ -107,19 +121,20 @@ def reach_round(src, dst, live, allowed, reached, impl: str = "auto"):
 
 
 def forward_reach(src, dst, live, seeds, allowed, max_iters: int,
-                  impl: str = "auto"):
+                  spec=None, impl: str = "auto"):
     """bool[NV]: vertices reachable from ``seeds`` along live edges,
-    staying inside ``allowed``.  Returns (reached, rounds)."""
-    return _fix(src)(
+    staying inside ``allowed``.  Returns (reached, rounds).  ``spec``
+    optionally pins the frontier's sharding (GraphConfig.label_spec)."""
+    return _fix(src, spec)(
         lambda r: reach_round(src, dst, live, allowed, r, impl),
         seeds & allowed, max_iters)
 
 
 def backward_reach(src, dst, live, seeds, allowed, max_iters: int,
-                   impl: str = "auto"):
+                   spec=None, impl: str = "auto"):
     """Reachability along reversed edges."""
     return forward_reach(dst, src, live, seeds, allowed, max_iters,
-                         impl=impl)
+                         spec=spec, impl=impl)
 
 
 def is_reachable(src, dst, live, u, v, allowed, max_iters: int,
@@ -151,14 +166,15 @@ def label_round(src, dst, live, allowed, lab, shortcut: bool = False,
 
 
 def propagate_min_labels(src, dst, live, labels, allowed, max_iters: int,
-                         shortcut: bool = False, impl: str = "auto"):
+                         spec=None, shortcut: bool = False,
+                         impl: str = "auto"):
     """Forward min-label propagation to fixpoint (the coloring sweep):
     labels[v] converges to min(labels[u] : u ~> v within allowed).  int32
     labels are non-negative, so they order-embed into the uint32
     messages; the incoming minimum is clamped back to INT32_MAX.
     ``shortcut`` adds pointer doubling lab[v] <- min(lab[v], lab[lab[v]]).
     Returns (labels, rounds)."""
-    return _fix(src)(
+    return _fix(src, spec)(
         lambda lab: label_round(src, dst, live, allowed, lab, shortcut,
                                 impl),
         labels, max_iters)
@@ -222,7 +238,7 @@ def prio_round(src, dst, live, active, lab, impl: str = "auto"):
 
 
 def propagate_min_prio(src, dst, live, active, max_iters: int,
-                       impl: str = "auto"):
+                       spec=None, impl: str = "auto"):
     """Witness propagation with pointer doubling under hashed priorities.
     Returns (witness int32[NV], rounds): witness[v] = the vertex of
     minimum hashed priority among {u : u ~> v within active}; nv where
@@ -232,7 +248,7 @@ def propagate_min_prio(src, dst, live, active, max_iters: int,
         raise ValueError("vertex ids must stay below the priority sentinel")
     vid = torch.arange(nv, dtype=torch.int32, device=active.device)
     lab0 = torch.where(active, _prio(vid), PRIO_SENT)
-    lab, rounds = _fix(src)(
+    lab, rounds = _fix(src, spec)(
         lambda lab: prio_round(src, dst, live, active, lab, impl),
         lab0, max_iters)
     witness = torch.where(lab != PRIO_SENT, _unprio(lab), nv)
@@ -251,10 +267,10 @@ def fw_bw_round(src, dst, live, allowed, reached, impl: str = "auto"):
 
 
 def fused_fw_bw_reach(src, dst, live, seed_f, seed_b, allowed,
-                      max_iters: int, impl: str = "auto"):
+                      max_iters: int, spec=None, impl: str = "auto"):
     """FW(seed_f) and BW(seed_b) in one fixpoint over a stacked [2, NV]
     frontier.  Returns (fw, bw, rounds)."""
-    reached, rounds = _fix(src)(
+    reached, rounds = _fix(src, lead(spec))(
         lambda r: fw_bw_round(src, dst, live, allowed, r, impl),
         torch.stack([seed_f & allowed, seed_b & allowed], dim=-2),
         max_iters)

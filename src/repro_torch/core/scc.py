@@ -69,11 +69,12 @@ def trim(src, dst, live, unassigned, vid, ccid, max_iters: int):
 
 
 def scc_static(src, dst, live, active, *, max_outer: int, max_inner: int,
-               shortcut: bool = False, impl: str = "auto"):
+               spec=None, shortcut: bool = False, impl: str = "auto"):
     """SCC labels of the subgraph induced by ``active`` over live edges:
     int32[NV], min-member-id label for active vertices, INT32_MAX
     elsewhere.  ``max_outer`` bounds the peel rounds, ``max_inner`` every
-    propagation fixpoint.
+    propagation fixpoint; ``spec`` optionally pins the NV-array sharding
+    inside the fixpoints (GraphConfig.label_spec).
 
     Tenant lanes ([T, C] edges, [T, NV] ``active``): one read of
     ``unassigned.any()`` an outer round for all lanes.  A lane with nothing
@@ -93,9 +94,11 @@ def scc_static(src, dst, live, active, *, max_outer: int, max_inner: int,
                                 max_inner)
         if shortcut:
             fwd, _ = reach.propagate_min_prio(src, dst, live, unassigned,
-                                              max_inner, impl=impl)
+                                              max_inner, spec=spec,
+                                              impl=impl)
             bwd, _ = reach.propagate_min_prio(dst, src, live, unassigned,
-                                              max_inner, impl=impl)
+                                              max_inner, spec=spec,
+                                              impl=impl)
             done = unassigned & (fwd == bwd) & (fwd < nv)
             # canonical label = min member id of each witness group
             # (one sentinel column per lane: groups never cross lanes)
@@ -110,10 +113,10 @@ def scc_static(src, dst, live, active, *, max_outer: int, max_inner: int,
             init = torch.where(unassigned, vid, INT32_MAX)
             fwd, _ = reach.propagate_min_labels(src, dst, live, init,
                                                 unassigned, max_inner,
-                                                impl=impl)
+                                                spec=spec, impl=impl)
             bwd, _ = reach.propagate_min_labels(dst, src, live, init,
                                                 unassigned, max_inner,
-                                                impl=impl)
+                                                spec=spec, impl=impl)
             done = unassigned & (fwd == bwd)
             ccid = torch.where(done, fwd, ccid)
         unassigned = unassigned & ~done

@@ -198,3 +198,17 @@ def mind_batch(n_items: int, batch: int, seq_len: int, profile_vocab: int,
         "target": _int32(target, device),
         "negatives": _int32(rng.integers(0, n_items, (n_neg,)), device),
     }
+
+
+# ------------------------------------------------------------ SCC (paper) ---
+
+def op_stream(n_vertices: int, batch: int, step: int, add_frac: float,
+              info: ShardInfo = ShardInfo(), seed: int = 0,
+              include_vertex_ops: bool = True):
+    """Deprecated alias of :func:`repro_torch.launch.workload.op_stream`,
+    as the reference keeps one: the same (seed, step, shard) stream."""
+    from repro_torch.launch import workload
+    return workload.op_stream(
+        n_vertices, batch, step, add_frac,
+        info=workload.ShardInfo(info.shard, info.n_shards), seed=seed,
+        include_vertex_ops=include_vertex_ops)

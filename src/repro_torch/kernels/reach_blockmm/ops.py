@@ -2,7 +2,9 @@
 kernel (``csrc/bool_matmul.cu``) for CUDA tensors.
 
 Replaces ``repro.kernels.reach_blockmm.ops.bool_matmul`` and its TPU
-kernel ``bool_matmul_f32``.
+kernel ``bool_matmul_f32``, and the two functions built on it there,
+``frontier_step`` and ``closure`` (each product one kernel launch on a
+card).
 """
 from __future__ import annotations
 
@@ -44,3 +46,19 @@ def bool_matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto"
 
 
 bool_matmul.launches = 0
+
+
+def frontier_step(adj: torch.Tensor, frontier: torch.Tensor, *,
+                  impl: str = "auto") -> torch.Tensor:
+    """One synchronous reachability round: F' = (Aᵀ F) ∨ F."""
+    return bool_matmul(adj.T.contiguous(), frontier, impl=impl) | frontier
+
+
+def closure(adj: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """Reflexive-transitive closure by repeated squaring (log2 N
+    products)."""
+    n = adj.shape[0]
+    r = adj | torch.eye(n, dtype=torch.bool, device=adj.device)
+    for _ in range(max(1, (n - 1).bit_length())):
+        r = bool_matmul(r, r, impl=impl)
+    return r

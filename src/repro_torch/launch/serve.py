@@ -1,22 +1,24 @@
 """Serving driver for the port: batched LM decode, MIND scoring, or the
 paper's streaming SCC service.
 
-    python -m repro_torch.launch.serve --steps 64
-    python -m repro_torch.launch.serve --steps 8 --device cpu
-    python -m repro_torch.launch.serve --steps 64 --readers 2
-    python -m repro_torch.launch.serve --steps 20 --readers 2 \
+    python -m repro_torch.launch.serve --device cpu --steps 4
+    python -m repro_torch.launch.serve --arch smscc --steps 64
+    python -m repro_torch.launch.serve --arch smscc --steps 8 --device cpu
+    python -m repro_torch.launch.serve --arch smscc --steps 64 --readers 2
+    python -m repro_torch.launch.serve --arch smscc --steps 20 --readers 2 \
         --replicas 2 --dir /tmp/scc-store
-    python -m repro_torch.launch.serve --tenants 4 --steps 32
-    python -m repro_torch.launch.serve --tenants 4 --steps 8 --dir /tmp/t \
-        --device cpu
+    python -m repro_torch.launch.serve --arch smscc --tenants 4 --steps 32
+    python -m repro_torch.launch.serve --arch smscc --tenants 4 --steps 8 \
+        --dir /tmp/t --device cpu
     python -m repro_torch.launch.serve --arch qwen3-14b --device cpu --steps 4
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b \
         --device cpu --steps 2
     python -m repro_torch.launch.serve --arch mind --device cpu --steps 4
 
-``--arch smscc`` (the default): a typed GraphClient update stream with
-SameSCC / Reachable query batches between chunks, over an SCCService
-booted with every vertex slot live; ``--readers N`` moves the queries to
+The default arch is the reference's, ``gemma3-12b``.  ``--arch smscc``:
+a typed GraphClient update stream with SameSCC / Reachable query
+batches between chunks, over an SCCService booted with every vertex
+slot live; ``--readers N`` moves the queries to
 N reader threads over one shared broker, and ``--replicas N --dir D``
 makes the store durable (a WAL-backed writer in ``D``) and serves the
 readers from N replicas tailing its log; ``--tenants N`` serves N
@@ -335,7 +337,7 @@ def serve_mind(cfg: mind.MINDConfig, steps: int = 4, *, batch: int = 32,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smscc")
+    ap.add_argument("--arch", default="gemma3-12b")
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--device", default=gs.DEFAULT_DEVICE)
     ap.add_argument("--readers", type=int, default=0,
@@ -364,13 +366,16 @@ def main():
         print(f"scored {rep['requests']} requests x batch {rep['batch']} x "
               f"{rep['n_cand']} candidates in {rep['seconds']:.3f}s "
               f"({rep['scores_per_s']:.0f} scores/s) on {rep['device']}")
-    elif args.tenants > 0:
-        serve_tenants(args.steps, args.tenants, directory=args.directory,
-                      device=args.device)
+    elif mod.FAMILY == "smscc":
+        if args.tenants > 0:
+            serve_tenants(args.steps, args.tenants,
+                          directory=args.directory, device=args.device)
+        else:
+            serve_smscc(args.steps, readers=args.readers,
+                        replicas=args.replicas, directory=args.directory,
+                        device=args.device)
     else:
-        serve_smscc(args.steps, readers=args.readers,
-                    replicas=args.replicas, directory=args.directory,
-                    device=args.device)
+        raise SystemExit(f"no serve path for family {mod.FAMILY}")
 
 
 if __name__ == "__main__":

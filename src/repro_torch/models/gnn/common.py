@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.sharding import P, constrain, remat_context
 from repro_torch.tree import tree_map
 
 EPS3 = torch.tensor([[[0, 0, 0], [0, 0, 1], [0, -1, 0]],
@@ -242,19 +243,17 @@ def rotate_feats(feats: dict, rot: torch.Tensor) -> dict:
 
 
 def constrain_rows(x, axis):
-    """The reference pins an intermediate's leading-dim sharding to a mesh
-    axis here; the port has no mesh, so only ``None`` (a no-op) is
-    accepted."""
-    if axis is not None:
-        raise ValueError(
-            f"mesh axis {axis!r}: the port runs on one device and has no "
-            f"mesh yet (ROADMAP §1: mesh, partition, steps, dryrun)")
-    return x
+    """Pin the leading-dim sharding of an intermediate (edge or node
+    arrays) to mesh ``axis`` (a name or a tuple); None is a no-op."""
+    if axis is None:
+        return x
+    return constrain(x, P(axis, *([None] * (x.dim() - 1))))
 
 
 def constrain_feats(feats, axis):
-    constrain_rows(None, axis)
-    return feats
+    if axis is None:
+        return feats
+    return {l: constrain_rows(f, axis) for l, f in feats.items()}
 
 
 def scan_layers(body, carry, layers, n_layers: int, remat: bool):
@@ -266,7 +265,8 @@ def scan_layers(body, carry, layers, n_layers: int, remat: bool):
     ``jax.checkpoint`` wraps the scan body."""
     for i in range(n_layers):
         p = tree_map(lambda x: x[i], layers)
-        carry = ckpt.checkpoint(body, carry, p, use_reentrant=False) \
+        carry = ckpt.checkpoint(body, carry, p, use_reentrant=False,
+                                context_fn=remat_context) \
             if remat else body(carry, p)
     return carry
 

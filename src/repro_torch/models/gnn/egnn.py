@@ -31,7 +31,7 @@ class EGNNConfig:
     update_pos: bool = True
     dtype: object = torch.float32
     scan_unroll: bool = False  # the reference's scan option; no effect here
-    edge_ax: object = None     # mesh axes: None only (no mesh in the port)
+    edge_ax: object = None     # mesh axes of edge and node rows
     node_ax: object = None
     remat: bool = False
 

@@ -43,7 +43,7 @@ class NequIPConfig:
     avg_degree: float = 8.0
     dtype: object = torch.float32
     scan_unroll: bool = False  # the reference's scan option; no effect here
-    edge_ax: object = None     # mesh axes: None only (no mesh in the port)
+    edge_ax: object = None     # mesh axes of edge and node rows
     node_ax: object = None
     remat: bool = False        # checkpoint each layer body
     edge_chunk: int = 0        # >0: stream edges in chunks of this size

@@ -26,6 +26,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import P, constrain
 from repro_torch.models import common
 
 DISPATCHES = ("einsum", "sort")
@@ -33,9 +34,12 @@ DISPATCHES = ("einsum", "sort")
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    """The reference's fields and defaults.  ``disp_spec`` and
-    ``expert_spec`` are GSPMD sharding constraints there and must stay
-    None here (the port runs on one device)."""
+    """The reference's fields and defaults.  ``expert_spec`` is the
+    reference's [E, G, C, D] constraint, applied here to the index
+    dispatch's [E, G*C, D] buffer (E as given, the merged G*C axis on the
+    G and C entries' axes).  ``disp_spec`` constrains the reference's
+    one-hot [G, Tg, E, C] dispatch tensor, which the port never builds:
+    it is accepted and constrains nothing (a declared departure)."""
     n_experts: int
     top_k: int
     d_model: int
@@ -51,9 +55,6 @@ class MoEConfig:
         if self.dispatch not in DISPATCHES:
             raise ValueError(f"dispatch {self.dispatch!r} is not one of "
                              f"{DISPATCHES}")
-        if self.disp_spec is not None or self.expert_spec is not None:
-            raise ValueError("disp_spec / expert_spec shard across a mesh; "
-                             "the port runs on one device")
 
 
 Params = Dict[str, Any]
@@ -114,6 +115,17 @@ def _n_groups(t: int, cfg: MoEConfig) -> int:
     return 1
 
 
+def _buffer_spec(spec):
+    """The reference's [E, G, C, D] ``expert_spec`` on the [E, G*C, D]
+    buffer: the G and C entries' axes name the merged axis, G's first."""
+    if spec is None:
+        return None
+    axes = tuple(a for entry in (spec[1], spec[2]) if entry is not None
+                 for a in (entry if isinstance(entry, tuple) else (entry,)))
+    merged = axes if len(axes) > 1 else (axes[0] if axes else None)
+    return P(spec[0], merged, spec[3])
+
+
 def _dispatch(params: Params, x: torch.Tensor, cfg: MoEConfig):
     """The routed experts by index.  x: [T, D] -> (y [T, D], aux)."""
     t, d = x.shape
@@ -143,7 +155,9 @@ def _dispatch(params: Params, x: torch.Tensor, cfg: MoEConfig):
     # a dropped pair writes the junk row n_rows, sliced off
     xe = torch.zeros((n_rows + 1, d), dtype=x.dtype, device=x.device)
     xe[torch.where(keep, row, n_rows)] = x[tok]
-    ye = _expert_ffn(params, xe[:n_rows].view(e, g * c, d)).view(n_rows, d)
+    spec = _buffer_spec(cfg.expert_spec)
+    ye = constrain(_expert_ffn(params, constrain(
+        xe[:n_rows].view(e, g * c, d), spec)), spec).view(n_rows, d)
     # the reference weighs in x's dtype; its combine sums in one product
     w = (top_w.reshape(-1) * keep).to(x.dtype).float()
     contrib = ye[torch.where(keep, row, 0)].float() * w[:, None]

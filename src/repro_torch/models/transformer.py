@@ -30,6 +30,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.sharding import constrain, remat_context, unshard_dim
 from repro_torch.models import common, moe as moe_lib
 
 NEG_INF = -1e30
@@ -60,7 +61,7 @@ class LMConfig:
     remat: str = "none"      # 'none' | 'full' | 'dots' (loss_fn only)
     attn_impl: str = "xla"   # 'xla' | 'flash' | 'chunked'
     aux_loss_weight: float = 0.01  # weight of the MoE aux loss in loss_fn
-    act_spec: Any = None     # must stay None: no sharding in the port yet
+    act_spec: Any = None     # residual stream's sharding between layers
     scan_unroll: bool = False  # the layer loop is a Python loop here
 
     def __post_init__(self):
@@ -73,8 +74,6 @@ class LMConfig:
                              f"{ATTN_IMPLS}")
         if self.remat not in REMATS:
             raise ValueError(f"remat {self.remat!r} is not one of {REMATS}")
-        if self.act_spec is not None:
-            raise ValueError("act_spec: the port does not shard activations")
 
     @property
     def windows(self) -> List[int]:
@@ -241,10 +240,13 @@ def _layer_fwd(cfg: LMConfig, p: Params, x, positions, window: int,
     """One decoder layer.  x: [B,S,D].  Returns (y, (k, v), aux_loss)."""
     b, s, d = x.shape
     dh = cfg.head_dim
-    h = common.rms_norm(x, p["ln1"])
-    q = (h @ p["wq"]).view(b, s, cfg.n_heads, dh)
-    k = (h @ p["wk"]).view(b, s, cfg.n_kv_heads, dh)
-    v = (h @ p["wv"]).view(b, s, cfg.n_kv_heads, dh)
+    # on a mesh (Megatron SP): the norm runs on the sequence-sharded
+    # stream, then the sequence is gathered before the projections, and
+    # the fused head dim is whole before it splits into heads
+    h = unshard_dim(common.rms_norm(x, p["ln1"]), 1)
+    q = unshard_dim(h @ p["wq"], -1).view(b, s, cfg.n_heads, dh)
+    k = unshard_dim(h @ p["wk"], -1).view(b, s, cfg.n_kv_heads, dh)
+    v = unshard_dim(h @ p["wv"], -1).view(b, s, cfg.n_kv_heads, dh)
     if cfg.qk_norm:
         q = common.rms_norm(q, p["q_norm"])
         k = common.rms_norm(k, p["k_norm"])
@@ -264,8 +266,8 @@ def _layer_fwd(cfg: LMConfig, p: Params, x, positions, window: int,
         out = _attention_chunked(q, k_all, v_all, positions, pos_k, window)
     else:
         out = _attention_xla(q, k_all, v_all, positions, pos_k, window)
-    x = x + out.reshape(b, s, cfg.n_heads * dh) @ p["wo"]
-    h = common.rms_norm(x, p["ln2"])
+    x = x + unshard_dim(out.reshape(b, s, cfg.n_heads * dh), -1) @ p["wo"]
+    h = unshard_dim(common.rms_norm(x, p["ln2"]), 1)
     if cfg.moe is not None:
         y, aux = moe_lib.apply(p["moe"], h.reshape(b * s, d), cfg.moe)
         y = y.view(b, s, d)
@@ -296,18 +298,21 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _train_layer(cfg: LMConfig, p: Params, x, positions, window: int):
-    """One layer for the loss, under ``cfg.remat`` -> (y, aux)."""
+    """One layer for the loss, under ``cfg.remat`` -> (y, aux); the
+    residual stream pinned to ``cfg.act_spec`` at both ends."""
     def body(x):
-        y, _, aux = _layer_fwd(cfg, p, x, positions, window)
-        return y, aux
+        y, _, aux = _layer_fwd(cfg, p, constrain(x, cfg.act_spec),
+                               positions, window)
+        return constrain(y, cfg.act_spec), aux
 
     if cfg.remat == "none":
         return body(x)
-    kw = {}
+    policy = None
     if cfg.remat == "dots":
-        kw["context_fn"] = functools.partial(
+        policy = functools.partial(
             ckpt.create_selective_checkpoint_contexts, _save_dots)
-    return ckpt.checkpoint(body, x, use_reentrant=False, **kw)
+    return ckpt.checkpoint(body, x, use_reentrant=False,
+                           context_fn=lambda: remat_context(policy))
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig):
@@ -322,7 +327,7 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: LMConfig):
     for p, window in zip(params["layers"], cfg.windows):
         x, a = _train_layer(cfg, p, x, positions, window)
         aux = aux + a
-    x = common.rms_norm(x, params["ln_f"])
+    x = unshard_dim(common.rms_norm(x, params["ln_f"]), 1)
     logits = _logits(cfg, params, x)
     valid = labels >= 0
     tgt = labels.clamp_min(0).long()
@@ -350,7 +355,9 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig,
     x = params["embed"][tokens.long()]
     positions = torch.arange(s, device=dev).expand(b, s)
     for l, (p, window) in enumerate(zip(params["layers"], cfg.windows)):
-        x, (k, v), _ = _layer_fwd(cfg, p, x, positions, window)
+        x, (k, v), _ = _layer_fwd(cfg, p, constrain(x, cfg.act_spec),
+                                  positions, window)
+        x = constrain(x, cfg.act_spec)
         cache["k"][l, :, :s] = k
         cache["v"][l, :, :s] = v
     x = common.rms_norm(x[:, -1], params["ln_f"])

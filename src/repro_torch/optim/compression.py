@@ -4,16 +4,18 @@
 Protocol per tensor:  e' = g + err;  q = round(e' / s), s = max|e'| / 127;
 transmit (q, s);  err <- e' - q*s.  On one host (``axis_name=None``) the
 gradients are quantized and dequantized locally, as the reference does,
-so the error-feedback dynamics run end to end.  A named pod axis needs a
-mesh, which the port does not have yet (ROADMAP §1: launch/mesh and
-partition): it is refused.
+so the error-feedback dynamics run end to end.  Over a named axis of the
+current mesh (``sharding.use_mesh``) the dequantized gradients are
+averaged across that axis's ranks, the reference's ``pmean``.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.sharding import current_mesh
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -41,18 +43,29 @@ def decompress(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
+def _axis_group(axis_name: str):
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError(f"compressed_psum over {axis_name!r}: no mesh is "
+                         f"current (sharding.use_mesh)")
+    return mesh.get_group(axis_name)
+
+
 def compressed_psum(grads, ef: EFState, axis_name: Optional[str]):
-    """Quantize -> (reduce) -> dequantize with error feedback; returns
-    (grads in their own dtypes, new EFState)."""
-    if axis_name is not None:
-        raise ValueError(
-            f"compressed_psum over pod axis {axis_name!r} needs a device "
-            f"mesh; the port has none yet (ROADMAP §1: launch/mesh and "
-            f"partition, the next slice)")
+    """Quantize -> (mean over ``axis_name``) -> dequantize with error
+    feedback; returns (grads in their own dtypes, new EFState).  Each
+    rank's grads are its own plain tensors, as inside the reference's
+    per-replica step."""
+    group = None if axis_name is None else _axis_group(axis_name)
     out_g, out_e = [], []
     for g, e in zip(tree_leaves(grads), tree_leaves(ef.err)):
         q, s, ne = compress(g, e)
-        out_g.append(decompress(q, s).to(g.dtype))
+        deq = decompress(q, s)
+        if group is not None:
+            # SUM then divide: gloo has no AVG
+            dist.all_reduce(deq, op=dist.ReduceOp.SUM, group=group)
+            deq = deq / dist.get_world_size(group)
+        out_g.append(deq.to(g.dtype))
         out_e.append(ne)
     return (tree_unflatten(grads, out_g),
             EFState(err=tree_unflatten(ef.err, out_e)))

@@ -10,7 +10,8 @@
   * **straggler surveillance**: per-step wall time against a rolling
     median; steps beyond ``straggler_factor`` x the median are counted.
   * **gradient compression**: optional int8 error feedback on the
-    gradients (``optim/compression.py``; one host, so no pod axis).
+    gradients (``optim/compression.py``), averaged over ``pod_axis`` of
+    the current mesh when one is named.
   * **in place**: the update writes the params and moments in place (the
     reference donates their buffers to its jitted step).
 
@@ -40,7 +41,7 @@ class TrainerConfig:
     keep_ckpts: int = 3
     log_every: int = 10
     grad_compression: bool = False
-    pod_axis: Optional[str] = None  # must stay None: no mesh in the port
+    pod_axis: Optional[str] = None  # axis name for the compressed psum
     straggler_factor: float = 3.0
 
 

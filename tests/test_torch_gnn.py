@@ -36,6 +36,7 @@ from repro.models.gnn import common as jgc
 from repro.optim import optimizer as jopt
 from repro.train import trainer as jtrainer
 from repro_torch import carry, configs
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import common as tcommon
 from repro_torch.models.gnn import common as tgc
 from repro_torch.models.gnn import nequip as tnequip
@@ -131,20 +132,32 @@ def test_substrate_functions_match_jax():
         {k: v.shape for k, v in jgc.zeros_feats(3, 2, 1).items()}
 
 
+class _TwoRankMesh:
+    axis_names = ("data", "model")
+    shape = {"data": 2, "model": 1}
+
+
 def test_constrain_accepts_only_none():
-    """The port has no mesh: a mesh axis in a config is refused when the
-    forward reaches it, as ``label_spec`` is refused."""
+    """A mesh axis constrains nothing with no mesh current (as on one
+    card), so a config naming one computes what the unnamed one does;
+    under a mesh of two ranks a plain tensor is refused."""
     x = torch.zeros(3)
     assert tgc.constrain_rows(x, None) is x
-    with pytest.raises(ValueError, match="mesh"):
-        tgc.constrain_rows(x, "data")
-    with pytest.raises(ValueError, match="mesh"):
-        tgc.constrain_feats({"l0": x}, ("data", "model"))
+    assert tgc.constrain_rows(x, "data") is x
+    assert tgc.constrain_feats({"l0": x}, ("data", "model"))["l0"] is x
     mod = configs.get("egnn")
-    cfg = mod.smoke_config(task="node_class", node_ax="model")
+    cfg = mod.smoke_config(task="node_class", node_ax="model",
+                           edge_ax="data")
     params = mod.MODULE.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(ValueError, match="mesh"):
-        mod.MODULE.loss_fn(params, _t(_np_batch("node_class")), cfg)
+    batch = _t(_np_batch("node_class"))
+    plain = dataclasses.replace(cfg, node_ax=None, edge_ax=None)
+    assert torch.equal(mod.MODULE.loss_fn(params, batch, cfg)[0],
+                       mod.MODULE.loss_fn(params, batch, plain)[0])
+    with mesh_lib.use_mesh(_TwoRankMesh()):
+        with pytest.raises(ValueError, match="mesh"):
+            tgc.constrain_rows(x, "data")
+        with pytest.raises(ValueError, match="mesh"):
+            mod.MODULE.loss_fn(params, batch, cfg)
 
 
 def test_tensor_products_are_equivariant():

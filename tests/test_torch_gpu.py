@@ -912,3 +912,81 @@ def test_launch_train_gnn_on_card(cuda):
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "done: 4 steps" in out.stdout and "on cuda" in out.stdout
+
+
+def test_smscc_and_mind_bundles_on_card_equal_direct_calls(cuda):
+    """The launch layer's step bundles on the host mesh (one card, 1x1) at
+    their configs' shapes: each result equals the port's function called
+    directly on the same inputs, the labels a static recompute, and the
+    SMSCC and MIND kernels launch."""
+    import torch.distributed as dist
+
+    from repro_torch import configs, kernels
+    from repro_torch.core import community, dynamic
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, workload
+    from repro_torch.models.recsys import mind
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mesh = mesh_lib.make_host_mesh()
+    try:
+        assert tuple(mesh.shape) == (1, 1)
+        smscc = configs.get("smscc")
+        shape = smscc.SHAPES["update_1m"]
+        cfg = smscc.config(n_vertices=shape["n_vertices"],
+                           edge_capacity=shape["edge_capacity"])
+        b = steps.build("smscc", "update_1m", mesh)
+        state = tgs.all_singletons(cfg, cuda)
+        direct = tree_map(torch.clone, state)
+        kernels.reset_launch_counts()
+        for s in range(2):
+            ops = tree_map(lambda x: x.to(cuda), workload.op_stream(
+                cfg.n_vertices, shape["batch"], step=s, add_frac=0.7))
+            state, ok = b.fn(state, ops)
+            direct, want = dynamic.apply_batch(direct, ops, cfg)
+            assert torch.equal(ok, want)
+        counts = kernels.launch_counts()
+        assert counts["frontier_min"] > 0 and counts["hash_probe"] > 0
+        for x, y in zip(tree_leaves(state), tree_leaves(direct)):
+            assert torch.equal(x, y)
+        assert torch.equal(dynamic.recompute(state, cfg).ccid, state.ccid)
+        q = steps.build("smscc", "community_query", mesh)
+        g = torch.Generator(device=cuda).manual_seed(0)
+        u, v = (torch.randint(0, cfg.n_vertices, (4096,), generator=g,
+                              device=cuda, dtype=torch.int32)
+                for _ in range(2))
+        assert torch.equal(q.fn(state, u, v),
+                           community.check_scc(state, u, v))
+
+        m = steps.build("mind", "serve_p99", mesh)
+        mcfg = configs.get("mind").config(scan_unroll=True)
+        params = mind.init(mcfg, torch.Generator(cuda).manual_seed(0), cuda)
+        rng = np.random.default_rng(0)
+        batch = {k: torch.as_tensor(rng.integers(lo, hi, size),
+                                    dtype=torch.int32, device=cuda)
+                 for k, lo, hi, size in (
+                     ("behavior", -1, mcfg.n_items, (512, mcfg.seq_len)),
+                     ("profile", -1, mcfg.profile_vocab,
+                      (512, mcfg.profile_len)),
+                     ("candidates", 0, mcfg.n_items, (512, 2048)))}
+        kernels.reset_launch_counts()
+        got = m.fn(params, batch)
+        assert kernels.launch_counts()["embedding_bag"] == 1
+        assert torch.equal(got, mind.serve_score(params, batch, mcfg))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_frontier_step_and_closure_launch_bool_matmul(cuda):
+    from repro_torch import kernels
+    g = torch.Generator(device=cuda).manual_seed(0)
+    n = 200
+    adj = torch.rand((n, n), generator=g, device=cuda) < 0.02
+    f = torch.rand((n, 8), generator=g, device=cuda) < 0.05
+    kernels.reset_launch_counts()
+    step = bops.frontier_step(adj, f)
+    assert kernels.launch_counts()["bool_matmul"] == 1
+    clo = bops.closure(adj)
+    assert kernels.launch_counts()["bool_matmul"] == 1 + (n - 1).bit_length()
+    assert torch.equal(step.cpu(), bref.frontier_step(adj.cpu(), f.cpu()))
+    assert torch.equal(clo.cpu(), bref.closure(adj.cpu()))

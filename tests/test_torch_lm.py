@@ -28,6 +28,7 @@ from repro.models import transformer as jtf
 from repro_torch import carry, kernels
 from repro_torch.configs import gemma3_12b, h2o_danube_3_4b, qwen3_14b
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import P, use_mesh
 from repro_torch.models import transformer as ttf
 
 ARCHS = {"qwen3": (j_qwen, qwen3_14b), "danube": (j_danube, h2o_danube_3_4b),
@@ -133,8 +134,22 @@ def test_unported_options_raise():
     qwen3_14b.smoke_config(attn_impl="chunked")
     with pytest.raises(ValueError, match="attn_impl"):
         qwen3_14b.smoke_config(attn_impl="splash")
-    with pytest.raises(ValueError, match="act_spec"):
-        qwen3_14b.smoke_config(act_spec=("data", "model", None))
+    # act_spec is accepted: it pins the residual stream on a mesh and is
+    # the identity with none current; a plain tensor under two ranks raises
+    cfg = qwen3_14b.smoke_config(act_spec=P("data", "model", None))
+    params = ttf.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.zeros((2, 8), dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks}
+    plain = dataclasses.replace(cfg, act_spec=None)
+    assert torch.equal(ttf.loss_fn(params, batch, cfg)[0],
+                       ttf.loss_fn(params, batch, plain)[0])
+
+    class TwoRanks:
+        axis_names = ("data", "model")
+        shape = {"data": 2, "model": 1}
+
+    with use_mesh(TwoRanks()), pytest.raises(ValueError, match="mesh"):
+        ttf.loss_fn(params, batch, cfg)
 
 
 def test_serve_lm_on_cpu():

@@ -32,6 +32,7 @@ from repro.models import transformer as jtf
 from repro_torch import carry, kernels
 from repro_torch.configs import moonshot_v1_16b_a3b, qwen3_moe_235b_a22b
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import P, use_mesh
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttf
 
@@ -90,9 +91,23 @@ def test_moe_config_rejects_unknown_dispatch_and_sharding():
     with pytest.raises(ValueError, match="dispatch"):
         tmoe.MoEConfig(n_experts=4, top_k=2, d_model=8, d_ff=4,
                        dispatch="scatter")
-    with pytest.raises(ValueError, match="mesh"):
-        tmoe.MoEConfig(n_experts=4, top_k=2, d_model=8, d_ff=4,
-                       expert_spec=("model",))
+    # the sharding constraints are accepted: the identity with no mesh
+    # current, refused for a plain tensor under a mesh of two ranks
+    cfg = tmoe.MoEConfig(n_experts=4, top_k=2, d_model=8, d_ff=4,
+                         disp_spec=P("data", None, "model", None),
+                         expert_spec=P("model", "data", None, None))
+    params = tmoe.init(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((6, 8), generator=torch.Generator().manual_seed(1))
+    plain = dataclasses.replace(cfg, disp_spec=None, expert_spec=None)
+    assert torch.equal(tmoe.apply(params, x, cfg)[0],
+                       tmoe.apply(params, x, plain)[0])
+
+    class TwoRanks:
+        axis_names = ("data", "model")
+        shape = {"data": 2, "model": 1}
+
+    with use_mesh(TwoRanks()), pytest.raises(ValueError, match="mesh"):
+        tmoe.apply(params, x, cfg)
 
 
 def _jax_cfg(arch, impl):
