@@ -30,7 +30,15 @@ Phases, each printing one line or more:
    preloaded graph: one round of each kind (boolean, label, FW/BW pair,
    packed Reachable batch), the fused kernel and the fused round body
    beside the unfused body (int64 messages built in torch, then the direct
-   kernel) it replaced, each held to the other exactly;
+   kernel) it replaced, each held to the other exactly; and every
+   fixpoint form (``fixpoint_checks``: boolean, its cap at 3 rounds,
+   FW/BW pair, labels with and without pointer doubling, priorities,
+   packed Reachable, trim), on update_1m's graph and over 256 tenant
+   lanes at the tenant path's class-A shape, one cooperative launch a
+   fixpoint held exactly (state and rounds) to the per-round loop on the
+   card, the plain version on the card and on CPU copies, with no host
+   read, timed from a replayed CUDA graph beside the per-round loop and
+   the plain version;
    the edge table's write path at update_1m's table (2^23 slots, 2^21
    edges, a quarter removed): the boot insert, an 8192-lane insert with
    duplicates and an enable mask, an 8192-lane remove, compact, rehash to
@@ -43,9 +51,10 @@ Phases, each printing one line or more:
    SCC makes repairs real) and one full recompute, then super-chunks of
    the paper's mix (add_frac 0.7, vertex ops on) through a GraphClient
    with SameSCC (1024) and Reachable (32) query batches between them.  The
-   launch counts are set to 0 just before and read just after; the
-   maintained labels must equal a fresh static recompute of the final
-   graph;
+   launch counts are set to 0 just before and read just after (every
+   frontier_min launch a fixpoint launch; the rounds they ran, by form,
+   read once from the card's counter afterwards); the maintained labels
+   must equal a fresh static recompute of the final graph;
 4. dense tier: the same path, smaller, with dense_capacity=512, read the
    same way (reach_blockmm must launch);
 5. card vs CPU: one seeded stream at 2^14 vertices and a 2^16-slot table
@@ -177,7 +186,10 @@ Phases, each printing one line or more:
    their plain forms exactly (one bool_matmul launch a product), and one
    dry-run cell (smscc:update_1m on 16x16) in a child process with its
    own fake process group of 256 ranks, its record printed;
-21. the kernels line (JSON; frontier_min and hash_probe also carry their
+21. the kernels line (JSON; frontier_min's entry is the boolean fixpoint
+   launch at update_1m, with every fixpoint row, the main path's fixpoint
+   launches and rounds under ``fixpoint`` and the round kernel alone under
+   ``round``; frontier_min and hash_probe also carry their
    tenant-row form under ``lanes``; flash and the bag their launches on
    each path under ``launches_by_path``, flash its MoE-shape rows under
    ``moe_shapes``, the bag its training-shape row, forward and backward,
@@ -205,6 +217,15 @@ INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 SEED = 0
+# serve_path's cells: update_1m (phase 3, the main path) and the dense
+# tier (phase 4)
+SERVE_CELLS = {
+    "update_1m": dict(nv=2 ** 20, cap=2 ** 23, bucket=8192, chunk=4 * 8192,
+                      n_chunks=8, preload_deg=2),
+    "dense_tier": dict(nv=2 ** 14, cap=2 ** 16, bucket=256, chunk=1024,
+                       n_chunks=8, preload_deg=0, dense_capacity=512,
+                       n_same=256),
+}
 
 KERNELS = {
     "frontier_min": dict(
@@ -258,6 +279,19 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(torch, fn):
+    """(fn(), ms of that one call on CUDA events): for calls that read
+    the host as they go, so a graph cannot hold them."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def graph_ms(torch, fn, reps: int) -> float:
@@ -359,8 +393,15 @@ def kernel_checks(torch, dev) -> dict:
     torch.cuda.empty_cache()
     rounds = frontier_round_checks(torch, dev, g)
     emit("frontier_rounds", tolerance="exact", rows=rounds)
-    # the main path's own form: the fused boolean round at update_1m
-    out["frontier_min"] = rounds[0]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fix = fixpoint_checks(torch, dev, g)
+    emit("frontier_fixpoints", tolerance="exact",
+         seconds=time.perf_counter() - t0, rows=fix)
+    # the main path's own form: one launch of the boolean fixpoint at
+    # update_1m (its rounds' kernel alone under "round")
+    out["frontier_min"] = dict(fix["update_1m"][0], round=rounds[0],
+                               fixpoints=fix)
 
     # hash_probe: C 2^23 at 25% load with TOMB chains, B 8192, 64 probes
     cap, n_keys, b, max_probes = 2 ** 23, 2 ** 21, 8192, 64
@@ -540,6 +581,155 @@ def frontier_round_checks(torch, dev, g, nv=2 ** 20, cap=2 ** 23) -> list:
         del msg, got, want
         torch.cuda.empty_cache()
     return rows
+
+
+def _fix_cases(torch, dev, g, allowed, vid, cap):
+    """(tag, form, shortcut, mask, init, max_iters) of every fixpoint form
+    on one graph (or [T, NV] lanes): 8192 random seeds a graph (one update
+    bucket), the recompute's labels, a Reachable batch of 32 single
+    sources, trim's peel from every vertex; the boolean form again at a
+    cap of 3 rounds."""
+    from repro_torch.kernels.frontier_expand import ref as fref
+
+    nv = allowed.shape[-1]
+    lead = allowed.shape[:-1]
+
+    def some(n):
+        m = torch.zeros(allowed.shape, dtype=torch.bool, device=dev)
+        m.view(-1, nv).scatter_(1, torch.randint(
+            0, nv, (m.view(-1, nv).shape[0], n), generator=g, device=dev),
+            True)
+        return m & allowed
+
+    single = torch.zeros((*lead, 32, nv), dtype=torch.bool, device=dev)
+    single.view(-1, nv).scatter_(1, torch.randint(
+        0, nv, (single.view(-1, nv).shape[0], 1), generator=g, device=dev),
+        True)
+    packed = torch.stack([fref.pack_bits(q) for q in
+                          single.view(-1, 32, nv)]).view(*lead, 1, nv)
+    seeds = min(8192, nv // 16)
+    labels = torch.where(allowed, vid, 2 ** 31 - 1)
+    return (
+        ("boolean", "reach", False, allowed, some(seeds), cap),
+        ("boolean, cap 3", "reach", False, allowed, some(seeds), 3),
+        ("fw/bw pair", "pair", False, allowed,
+         torch.stack([some(seeds), some(seeds)], dim=-2), cap),
+        ("labels", "label", False, allowed, labels, cap),
+        ("labels, shortcut", "label", True, allowed, labels, cap),
+        ("priorities", "prio", False, allowed,
+         torch.where(allowed, fref.prio(vid), fref.PRIO_SENT), cap),
+        ("packed Reachable Q=32", "or", False, allowed, packed & -allowed
+         .int().unsqueeze(-2), cap),
+        ("trim", "trim", False, None,
+         (allowed, torch.full(allowed.shape, 2 ** 31 - 1, dtype=torch.int32,
+                              device=dev)), cap))
+
+
+def fixpoint_checks(torch, dev, g, nv=2 ** 20, cap=2 ** 23, lanes=256,
+                    lane_nv=4096, lane_cap=2 ** 14, reps=3) -> dict:
+    """Every fixpoint form of frontier_min (``ops.frontier_fixpoint``: all
+    rounds of one sweep in one cooperative launch, no host read) on
+    update_1m's preloaded graph (2^20 vertices, 2^23 slots, 2^21 live edges
+    of out-degree 2) at ``max_inner`` (256) and at a cap of 3, and over
+    ``lanes`` tenant lanes at the tenant path's class-A shape (4096
+    vertices, 2^14 slots, out-degree 2, booted by a lane recompute).  Each
+    launch is held exactly, state and rounds, to the per-round loop on the
+    card (``reach.round_loop``: the parent's path, one frontier_gather
+    launch and one host read a round), to the plain version on the card
+    and on CPU copies (all forms but the packed OR, ``held_to``), and
+    must make no host read.  Times: ``ms`` the launch's device time from
+    a replayed CUDA graph (so it captures), ``host_ms`` the wrapper back
+    to back, ``loop_ms`` the per-round loop and ``plain_ms`` the plain
+    version on the card, one call each; ``bound_ms`` the rounds times one
+    round's bytes as ``frontier_round_checks`` reckons them (src, dst 4 B
+    and live 1 B a slot, val and out 4 B a vertex and row)."""
+    import numpy as np
+
+    from repro_torch.configs import smscc
+    from repro_torch.core import graph_state as gs
+    from repro_torch.core import reach
+    from repro_torch.core.edge_table import LIVE
+    from repro_torch.core.sync import SYNCS
+    from repro_torch.kernels.frontier_expand import ops as fops
+    from repro_torch.kernels.frontier_expand import ref as fref
+
+    max_inner = smscc.config().max_inner
+    rng = np.random.default_rng(SEED)
+    src_np = np.repeat(np.arange(nv, dtype=np.int32), 2)
+    state = gs.from_arrays(smscc.config(n_vertices=nv, edge_capacity=cap),
+                           src_np, rng.integers(0, nv, src_np.shape[0])
+                           .astype(np.int32), device=dev)
+    lcfg = smscc.config(n_vertices=lane_nv, edge_capacity=lane_cap)
+    boot, _, _ = boot_lanes(torch, dev, lcfg, lanes, 2, SEED + 40)
+    out = {}
+    for where, st in (("update_1m", state), (f"lanes T={lanes}", boot)):
+        src, dst, live = st.edges.src, st.edges.dst, st.edges.state == LIVE
+        allowed = st.v_alive
+        n = allowed.shape[-1]
+        vid = torch.arange(n, dtype=torch.int32, device=dev)
+        cpu = [x.cpu() for x in (src, dst, live)]
+        rows = []
+        for tag, form, shortcut, mask, init, it in _fix_cases(
+                torch, dev, g, allowed, vid, max_inner):
+            kw = dict(shortcut=shortcut, vid=vid)
+
+            def kern(i=init, m=mask, f=form, k=kw, c=it):
+                return fops.frontier_fixpoint(f, src, dst, live, m, i, c,
+                                              **k)
+
+            def loop(i=init, m=mask, f=form, k=kw, c=it):
+                return reach.round_loop(f, src, dst, live, m, i, c, **k)
+
+            def plain(i=init, m=mask, f=form, k=kw, c=it):
+                return fref.frontier_fixpoint(f, src, dst, live, m, i, c,
+                                              **k)
+
+            s0 = SYNCS.count
+            got = kern()
+            check(SYNCS.count == s0, f"fixpoint {tag}: a host read")
+            want, loop_ms = timed(torch, loop)
+            ref_card, plain_ms = timed(torch, plain)
+            runs = {"loop": want, "plain": ref_card}
+            # the CPU's packed-OR rounds unpack 32 frontiers of int64
+            # messages per slot (~6 s a round at 2^23 slots); the card's
+            # plain version and the gpu tests (at small sizes) hold it
+            if form != "or":
+                runs["cpu"] = fref.frontier_fixpoint(
+                    form, *cpu, None if mask is None else mask.cpu(),
+                    tuple(x.cpu() for x in init) if form == "trim" else
+                    init.cpu(), it, shortcut=shortcut, vid=vid.cpu())
+            mine = got[0] if form == "trim" else (got[0],)
+            for name, (st_, n_) in runs.items():
+                theirs = st_ if form == "trim" else (st_,)
+                check(all(torch.equal(a.cpu(), b.cpu()) for a, b in
+                          zip(mine, theirs)) and
+                      torch.equal(got[1].cpu(), n_.cpu()),
+                      f"fixpoint {tag} on {where} differs from the "
+                      f"{name} version")
+            rounds = got[1].tolist()
+            ran = max(rounds) if isinstance(rounds, list) else rounds
+            f_rows = 1 if form == "trim" else (
+                init.shape[-2] if form in ("pair", "or") else 1)
+            t_n = src.numel() // src.shape[-1]
+            b_ms, b_by = bound_ms(ran * (9 * src.numel()
+                                         + 2 * 4 * f_rows * n * t_n))
+            theirs = ref_card[0] if form == "trim" else (ref_card[0],)
+            rows.append(checked_row(dict(
+                shape=f"{tag}: E={src.shape[-1]} NV={n}"
+                      + (f" x T={t_n}" if t_n > 1 else "")
+                      + f", max_iters {it}",
+                form=form, shortcut=shortcut, rounds=rounds,
+                held_to=sorted(runs),
+                max_abs_err=max(max_abs_err(torch, a, b) for a, b in
+                                zip(mine, theirs)),
+                ms=graph_ms(torch, kern, reps),
+                host_ms=cuda_ms(torch, kern, reps), loop_ms=loop_ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)))
+            del got, want, ref_card, runs
+        out[where] = rows
+        torch.cuda.empty_cache()
+    return out
 
 
 def unfused_messages(torch, fops, kind, src, dst, live, allowed, st):
@@ -1199,6 +1389,7 @@ def serve_path(torch, dev, *, nv, cap, bucket, chunk, n_chunks,
     from repro_torch.configs import smscc
     from repro_torch.core import dynamic
     from repro_torch.core.service import SCCService
+    from repro_torch.kernels.frontier_expand import ops as fops
     from repro_torch.kernels.hash_probe import ops as hops
     from repro_torch.launch import stream
 
@@ -1224,6 +1415,11 @@ def serve_path(torch, dev, *, nv, cap, bucket, chunk, n_chunks,
     rep["launches"] = kernels.launch_counts()
     rep["hash_probe_launches"] = {e: getattr(hops, e).launches
                                   for e in ("probe", "insert", "remove")}
+    rep["fixpoint_launches"] = fops.frontier_min.fixpoint_launches
+    # rounds the fixpoint launches ran, added up on the card (read once,
+    # after the run): updates run reach / pair / label / prio and trim,
+    # the Reachable queries the packed OR
+    rep["fixpoint_rounds"] = fops.fixpoint_rounds()
     steps = sum(run[f"repair_{t}_steps"] for t in
                 ("dense", "compact", "full", "skipped"))
     rep.update(
@@ -1235,6 +1431,11 @@ def serve_path(torch, dev, *, nv, cap, bucket, chunk, n_chunks,
         update_host_syncs_per_step=run["update_syncs"] / max(steps, 1),
         update_launches_per_step={k: n / max(steps, 1) for k, n in
                                   run["update_launches"].items()},
+        frontier_rounds_per_step=sum(
+            rep["fixpoint_rounds"][k] for k in
+            ("reach", "pair", "label", "prio")) / max(steps, 1),
+        trim_rounds_per_step=rep["fixpoint_rounds"]["trim"] / max(steps, 1),
+        query_rounds=rep["fixpoint_rounds"]["or"],
         query_syncs=run["query_syncs"],
         query_launches=run["query_launches"],
         repair_steps={t: run[f"repair_{t}_steps"] for t in
@@ -2578,6 +2779,7 @@ def durable_path(torch, dev, *, nv=2 ** 20, cap=2 ** 23, bucket=8192,
     from repro_torch.configs import smscc
     from repro_torch.core.replicas import ReplicaSet
     from repro_torch.core.service import SCCService
+    from repro_torch.core.sync import SYNCS
     from repro_torch.launch import serve, stream
     from repro_torch.launch.replica import states_equal
 
@@ -2609,8 +2811,13 @@ def durable_path(torch, dev, *, nv=2 ** 20, cap=2 ** 23, bucket=8192,
         return seconds
 
     plain = SCCService(cfg, state=boot, **knobs)
+    s0 = SYNCS.count
     rep["plain_s"] = feed(plain)
     rep["plain_ops_per_s"] = n_chunks * chunk / rep["plain_s"]
+    st = plain.stats()
+    rep["plain_host_syncs_per_step"] = (SYNCS.count - s0) / max(1, sum(
+        st[f"repair_{t}_steps"] for t in
+        ("dense", "compact", "full", "skipped")))
     plain_state = plain.state
     del plain
 
@@ -3216,9 +3423,8 @@ def main() -> int:
     emit("kernels_checked", seconds=time.perf_counter() - t0)
     torch.cuda.empty_cache()
 
-    main_rep, _ = serve_path(torch, dev, nv=2 ** 20, cap=2 ** 23,
-                             bucket=8192, chunk=4 * 8192, n_chunks=8,
-                             preload_deg=2, budget_s=300.0)
+    main_rep, _ = serve_path(torch, dev, **SERVE_CELLS["update_1m"],
+                             budget_s=300.0)
     emit("main_path", **main_rep)
     if main_rep["chunks"] < main_rep["chunks_asked"]:
         emit("main_path_cut", chunks=main_rep["chunks"],
@@ -3227,13 +3433,12 @@ def main() -> int:
         check(main_rep["launches"][k] > 0, f"{k} never launched")
     check(main_rep["hash_probe_launches"]["insert"] > 0,
           "hash_probe's insert entry never launched")
+    check(main_rep["fixpoint_launches"] == main_rep["launches"][
+        "frontier_min"] > 0, "a fixpoint of the main path ran from the host")
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    dense_rep, _ = serve_path(torch, dev, nv=2 ** 14, cap=2 ** 16,
-                              bucket=256, chunk=1024, n_chunks=8,
-                              preload_deg=0, dense_capacity=512,
-                              n_same=256)
+    dense_rep, _ = serve_path(torch, dev, **SERVE_CELLS["dense_tier"])
     emit("dense_tier", seconds=time.perf_counter() - t0, **dense_rep)
     check(dense_rep["launches"]["bool_matmul"] > 0,
           "bool_matmul never launched")
@@ -3407,6 +3612,12 @@ def main() -> int:
              shape=kern[name]["shape"],
              **({"launches_by_entry": main_rep["hash_probe_launches"]}
                 if name == "hash_probe" else {}),
+             **({"fixpoint": dict(
+                 launches=main_rep["fixpoint_launches"],
+                 rounds=main_rep["fixpoint_rounds"],
+                 rows=kern[name]["fixpoints"]),
+                 "round": kern[name]["round"]}
+                if name == "frontier_min" else {}),
              **({"launches_by_path": by_path[name]} if name in by_path
                 else {}),
              **({"moe_shapes": kern["flash_attention_moe"]}

@@ -23,15 +23,15 @@ power limit.  Needs a CUDA card: without one it exits 1.
 from __future__ import annotations
 
 import argparse
-import collections
 import dataclasses
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from device_profile import profiled  # noqa: E402
 
 # kernel family by a substring of the kernel's name, first match wins
 FAMILIES = (
@@ -42,44 +42,6 @@ FAMILIES = (
     ("index_gather_scatter", ("index", "scatter", "gather")),
     ("copy_cast", ("copy", "fill", "cast")),
 )
-
-
-def family(name: str) -> str:
-    low = name.lower()
-    for fam, keys in FAMILIES:
-        if any(k in low for k in keys):
-            return fam
-    return "other_elementwise"
-
-
-def profiled(torch, fn):
-    """Run ``fn`` once under the profiler; (wall s, busy s, families,
-    top kernels)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_fam = collections.Counter()
-    by_name = collections.Counter()
-    for e in kernels:
-        us = e.device_time_total
-        by_fam[family(e.name)] += us
-        by_name[e.name] += us
-    busy = sum(by_fam.values()) / 1e6
-    return {"wall_s": wall, "device_busy_s": busy,
-            "device_idle_share": 1.0 - busy / wall if wall else None,
-            "kernels": len(kernels),
-            "device_s_by_family": {k: v / 1e6
-                                   for k, v in by_fam.most_common()},
-            "top_kernels_s": [[n[:120], v / 1e6]
-                              for n, v in by_name.most_common(10)]}
 
 
 def main() -> int:
@@ -131,9 +93,9 @@ def main() -> int:
     head = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": batch,
             "prompt": prompt}
     print(json.dumps({"window": "prefill", **head,
-                      **profiled(torch, prefill)}), flush=True)
+                      **profiled(torch, prefill, FAMILIES)}), flush=True)
     print(json.dumps({"window": "decode", **head, "steps": steps,
-                      **profiled(torch, decode)}), flush=True)
+                      **profiled(torch, decode, FAMILIES)}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

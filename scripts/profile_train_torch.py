@@ -56,7 +56,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_train_torch: needs a CUDA card", file=sys.stderr)
         return 1
-    from profile_lm_torch import profiled
+    from device_profile import profiled
+    from profile_lm_torch import FAMILIES
     from repro_torch import configs
     from repro_torch.launch import train as ltrain
     from repro_torch.models.recsys import mind
@@ -103,8 +104,8 @@ def main() -> int:
         metrics["loss"].item()
 
     step(0)  # warm-up: cuBLAS handles, the kernels' build
-    print(json.dumps({"window": "train_step", **head,
-                      **profiled(torch, lambda: step(1))}), flush=True)
+    prof = profiled(torch, lambda: step(1), FAMILIES)
+    print(json.dumps({"window": "train_step", **head, **prof}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

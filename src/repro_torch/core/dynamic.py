@@ -10,7 +10,10 @@ the region fits (dense, compact, full).
 Where JAX uses ``lax.cond`` / ``lax.switch`` / ``lax.scan``, the port uses
 Python control flow: the repair gate and the tier choice each read one
 value back from the device (counted by :data:`repro_torch.core.sync.SYNCS`),
-and the scan entry is a loop over steps.
+and the scan entry is a loop over steps.  The sweeps' ``lax.while_loop``
+fixpoints stay on the device: on the card each is one kernel launch
+(``core/reach.py``), so a step's remaining reads are the gate, the region
+sizes and the static SCC's outer loop.
 
 ``apply_batch_stats_lanes`` / ``apply_batch_scan_lanes`` are the step over
 a leading tenant axis (the JAX package's ``jax.vmap`` of the scan, as its

@@ -5,106 +5,85 @@ of per-edge messages into destination vertices; booleans ride the
 min-semiring (reached -> 0, blocked -> SENTINEL).  The JAX package builds
 the E-sized message array and then reduces it; here each round hands the
 kernel a vertex-sized array of uint32 values in 32-bit words and the
-kernel gathers the message of each edge itself
-(:func:`repro_torch.kernels.frontier_expand.ops.frontier_gather`).  A
-Reachable batch keeps its Q frontiers packed 32 to a word and ORs them
-(min over 0 / SENTINEL messages is OR over reached bits), unpacking once
-at the end.
+kernel gathers the message of each edge itself.  A Reachable batch keeps
+its Q frontiers packed 32 to a word and ORs them (min over 0 / SENTINEL
+messages is OR over reached bits), unpacking once at the end.
 
-Each round is a module-level function ``*_round(..., state) -> (state,
-changed)``.  ``_fixpoint`` is Python control flow: each round reads its
-``changed`` flag back from the device (one counted host sync per round).
+Each sweep is one fixpoint form of the frontier kernel
+(``kernels/frontier_expand/ref.FORMS``), and :func:`_fix` runs it as the
+JAX package's ``lax.while_loop`` runs it:
+
+- on plain CUDA tensors, one cooperative launch runs every round on the
+  card (:func:`repro_torch.kernels.frontier_expand.ops.frontier_fixpoint`)
+  and nothing is read back: the round count stays on the device;
+- on CPU tensors (the plain version) and on DTensors over a mesh,
+  :func:`round_loop` runs the rounds from Python, each round's body one
+  ``frontier_gather`` and reading its ``changed`` flag back (one counted
+  host sync a round).  It stays callable on the card as the per-round
+  path the kernel is held to.
+
 Round counts and the ``max_iters`` cap are exactly those of the JAX while
-loop.
+loop; every sweep returns them as an int32 tensor on the state's device.
 
 Tenant lanes: given edges [T, C] (row-local ids) and masks [T, NV], every
-sweep runs T independent graphs at once, one frontier launch a round for
-all of them (``jax.vmap`` of the JAX sweep).  ``changed`` is per lane;
-``_fixpoint_lanes`` reads once a round whether any lane is still active,
-freezes a lane that stopped, and caps every lane at the same
-``max_iters``, so each lane's result and round count are its solo ones.
+sweep runs T independent graphs at once (``jax.vmap`` of the JAX sweep).
+``changed`` and the rounds are per lane; a lane that stopped is frozen
+and every lane is capped at the same ``max_iters``, so each lane's result
+and round count are its solo ones.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.core.sync import SYNCS
 from repro_torch.kernels.frontier_expand import ops as frontier
-from repro_torch.kernels.u32 import mul32
+from repro_torch.kernels.frontier_expand import ref as fref
 from repro_torch.sharding import constrain, lead
 
-SENT_WORD = frontier.SENT_WORD  # SENTINEL as a 32-bit word
-INT32_MAX = 2 ** 31 - 1
+take = fref.take
 
 
-def _fixpoint(body, init, max_iters: int):
-    """while changed and iters < cap: state, changed = body(state).
-    Returns (state, iters)."""
-    state, it = init, 0
-    changed = True
-    while changed and it < max_iters:
-        state, ch = body(state)
-        changed = SYNCS.bool(ch)
-        it += 1
-    return state, it
+def _on_card(x) -> bool:
+    """A plain (not distributed) CUDA tensor: the fixpoint kernel's."""
+    return type(x) is torch.Tensor and x.is_cuda
 
 
-def _fixpoint_lanes(body, init, max_iters: int):
-    """``_fixpoint`` over tenant lanes: ``body`` returns a per-lane
-    ``changed`` bool[T].  Returns (state, rounds int32[T] on the device).
-    A lane leaves the loop after its first unchanged round and keeps its
-    state from then on (``torch.where(active, new, old)``); the loop ends
-    when no lane is active or at ``max_iters`` (one host read a round)."""
-    state = init
-    first = init[0] if isinstance(init, tuple) else init
-    rounds = torch.zeros(first.shape[0], dtype=torch.int32,
-                         device=first.device)
-    active = torch.ones_like(rounds, dtype=torch.bool)
-    for _ in range(max_iters):
-        new, ch = body(state)
-        state = _freeze(active, new, state)
-        rounds = rounds + active.int()
-        active = active & ch
-        if not SYNCS.bool(active.any()):
-            break
-    return state, rounds
-
-
-def _freeze(active, new, old):
-    if isinstance(new, tuple):
-        return tuple(_freeze(active, n, o) for n, o in zip(new, old))
-    return torch.where(active.view(-1, *([1] * (new.dim() - 1))), new, old)
-
-
-def _fix(src, spec=None):
-    """The fixpoint loop for these edges: tenant lanes for [T, C]; each
-    round's state pinned to ``spec`` (``GraphConfig.label_spec``, behind
-    the lane axis for lanes)."""
-    drive = _fixpoint_lanes if src.dim() == 2 else _fixpoint
-    if spec is None:
-        return drive
-    if src.dim() == 2:
+def round_loop(form: str, src, dst, live, mask, init, max_iters: int, *,
+               spec=None, shortcut: bool = False, vid=None,
+               impl: str = "auto"):
+    """The fixpoint as a host loop: each round is ``fref.round_body`` over
+    ``frontier_gather`` (the kernel on the card, the plain gather on the
+    CPU) and one counted read of its ``changed`` flag.  ``spec`` pins each
+    round's state (``GraphConfig.label_spec``, behind the lane axis for
+    lanes).  Returns (state, rounds)."""
+    lanes = src.dim() == 2
+    if lanes:
         spec = lead(spec)
 
-    def pinned(body, init, max_iters: int):
-        def step(state):
-            nxt, ch = body(state)
-            return constrain(nxt, spec), ch
-        return drive(step, constrain(init, spec), max_iters)
-    return pinned
+    def body(state):
+        nxt, ch = _round(form, src, dst, live, mask, state, impl, shortcut,
+                         vid)
+        return constrain(nxt, spec), ch
+    return fref.fixpoint_loop(body, constrain(init, spec), max_iters, lanes,
+                              read=SYNCS.bool)
 
 
-def _changed(new, old, src):
-    """Whether a round changed anything: a scalar, or one flag per tenant
-    lane when the edges are [T, C]."""
-    diff = new != old
-    return diff.any() if src.dim() == 1 else diff.flatten(1).any(1)
-
-
-def take(x, idx):
-    """``x[idx]``, per tenant row for [T, ...] ``x`` (a gather along the
-    last axis)."""
-    return x[idx] if x.dim() == 1 else x.gather(-1, idx.long())
+def _fix(form: str, src, dst, live, mask, init, max_iters: int, *,
+         spec=None, shortcut: bool = False, vid=None, impl: str = "auto"):
+    """The fixpoint of ``form`` from ``init``: one kernel launch with no
+    host read for plain CUDA tensors, else :func:`round_loop`.  Returns
+    (state, rounds)."""
+    first = init[0] if isinstance(init, tuple) else init
+    if not _on_card(first):
+        return round_loop(form, src, dst, live, mask, init, max_iters,
+                          spec=spec, shortcut=shortcut, vid=vid, impl=impl)
+    # a plain tensor under a mesh of several ranks raises, as a round would
+    constrain(first, lead(spec) if src.dim() == 2 else spec)
+    return frontier.frontier_fixpoint(form, src, dst, live, mask, init,
+                                      max_iters, shortcut=shortcut, vid=vid,
+                                      impl=impl)
 
 
 def _reached_val(mask: torch.Tensor) -> torch.Tensor:
@@ -112,12 +91,18 @@ def _reached_val(mask: torch.Tensor) -> torch.Tensor:
     return mask.int() - 1
 
 
+def _round(form, src, dst, live, mask, state, impl, shortcut=False,
+           vid=None):
+    """One round of ``form`` through ``frontier_gather``."""
+    return fref.round_body(form, src, dst, live, mask, state,
+                           shortcut=shortcut, vid=vid,
+                           gather=functools.partial(frontier.frontier_gather,
+                                                    impl=impl))
+
+
 def reach_round(src, dst, live, allowed, reached, impl: str = "auto"):
     """One round of :func:`forward_reach`: (next, changed)."""
-    incoming = frontier.frontier_gather(src, dst, live, _reached_val(reached),
-                                        allowed.shape[-1], impl=impl)
-    nxt = reached | ((incoming == 0) & allowed)
-    return nxt, _changed(nxt, reached, src)
+    return _round("reach", src, dst, live, allowed, reached, impl)
 
 
 def forward_reach(src, dst, live, seeds, allowed, max_iters: int,
@@ -125,9 +110,8 @@ def forward_reach(src, dst, live, seeds, allowed, max_iters: int,
     """bool[NV]: vertices reachable from ``seeds`` along live edges,
     staying inside ``allowed``.  Returns (reached, rounds).  ``spec``
     optionally pins the frontier's sharding (GraphConfig.label_spec)."""
-    return _fix(src, spec)(
-        lambda r: reach_round(src, dst, live, allowed, r, impl),
-        seeds & allowed, max_iters)
+    return _fix("reach", src, dst, live, allowed, seeds & allowed,
+                max_iters, spec=spec, impl=impl)
 
 
 def backward_reach(src, dst, live, seeds, allowed, max_iters: int,
@@ -149,20 +133,8 @@ def is_reachable(src, dst, live, u, v, allowed, max_iters: int,
 
 def label_round(src, dst, live, allowed, lab, shortcut: bool = False,
                 impl: str = "auto"):
-    """One round of :func:`propagate_min_labels`: (next, changed).  int32
-    labels are their own uint32 words; an incoming word read as a negative
-    int32 is a uint32 >= 2^31 and clamps to INT32_MAX, as JAX's
-    ``minimum(incoming, INT32_MAX)`` does."""
-    nv = lab.shape[-1]
-    incoming = frontier.frontier_gather(
-        src, dst, live, torch.where(allowed, lab, SENT_WORD), nv, impl=impl)
-    incoming = torch.where(incoming < 0, INT32_MAX, incoming)
-    nxt = torch.where(allowed, torch.minimum(lab, incoming), lab)
-    if shortcut:
-        hop = take(nxt, nxt.clamp(0, nv - 1))
-        nxt = torch.where(allowed & (nxt < INT32_MAX),
-                          torch.minimum(nxt, hop), nxt)
-    return nxt, _changed(nxt, lab, src)
+    """One round of :func:`propagate_min_labels`: (next, changed)."""
+    return _round("label", src, dst, live, allowed, lab, impl, shortcut)
 
 
 def propagate_min_labels(src, dst, live, labels, allowed, max_iters: int,
@@ -174,21 +146,14 @@ def propagate_min_labels(src, dst, live, labels, allowed, max_iters: int,
     messages; the incoming minimum is clamped back to INT32_MAX.
     ``shortcut`` adds pointer doubling lab[v] <- min(lab[v], lab[lab[v]]).
     Returns (labels, rounds)."""
-    return _fix(src, spec)(
-        lambda lab: label_round(src, dst, live, allowed, lab, shortcut,
-                                impl),
-        labels, max_iters)
+    return _fix("label", src, dst, live, allowed, labels, max_iters,
+                spec=spec, shortcut=shortcut, impl=impl)
 
 
 def multi_reach_round(src, dst, live, allowed, bits, impl: str = "auto"):
     """One round of :func:`multi_forward_reach` on packed frontiers
     (int32 words [W, NV]): (next, changed)."""
-    incoming = frontier.frontier_gather(src, dst, live, bits,
-                                        allowed.shape[0], mode="or",
-                                        impl=impl)
-    # all 32 bits where allowed (word -1), none elsewhere
-    nxt = bits | (incoming & -allowed.int())
-    return nxt, (nxt != bits).any()
+    return _round("or", src, dst, live, allowed, bits, impl)
 
 
 def multi_forward_reach(src, dst, live, seeds, allowed, max_iters: int,
@@ -196,45 +161,10 @@ def multi_forward_reach(src, dst, live, seeds, allowed, max_iters: int,
     """Batched reachability: seeds/result are bool[Q, NV]; the Q axis is
     the kernel's frontier dimension, packed 32 frontiers to a word for the
     fixpoint and unpacked once at its end."""
-    bits, rounds = _fixpoint(
-        lambda b: multi_reach_round(src, dst, live, allowed, b, impl),
-        frontier.pack_bits(seeds & allowed[None, :]), max_iters)
+    bits, rounds = _fix("or", src, dst, live, allowed,
+                        frontier.pack_bits(seeds & allowed[None, :]),
+                        max_iters, impl=impl)
     return frontier.unpack_bits(bits, seeds.shape[0]), rounds
-
-
-# Bijective priority hash (odd multiplier mod 2^32) and its inverse: the
-# JAX package's hashed priorities, so pointer doubling collapses monotone
-# id runs.  Priorities use all 32 bits and are held as uint32 values in
-# int64, so torch compares them unsigned; they pass to the kernel as words.
-P_MUL = 0x9E3779B1
-P_INV = pow(P_MUL, -1, 2 ** 32)
-PRIO_SENT = 0xFFFFFFFF
-SENT_PREIMAGE = (0xFFFFFFFF * P_INV) % (2 ** 32)
-
-
-def _prio(v: torch.Tensor) -> torch.Tensor:
-    return mul32(v.long(), P_MUL)
-
-
-def _unprio(p: torch.Tensor) -> torch.Tensor:
-    """The inverse hash as int32 with two's-complement wrap, as JAX's
-    uint32 -> int32 astype gives it."""
-    return frontier.u32_to_words(mul32(p, P_INV))
-
-
-def prio_round(src, dst, live, active, lab, impl: str = "auto"):
-    """One round of :func:`propagate_min_prio` (lab: uint32 in int64):
-    (next, changed)."""
-    nv = active.shape[-1]
-    incoming = frontier.words_to_u32(frontier.frontier_gather(
-        src, dst, live,
-        frontier.u32_to_words(torch.where(active, lab, PRIO_SENT)), nv,
-        impl=impl))
-    nxt = torch.where(active, torch.minimum(lab, incoming), lab)
-    hop = take(nxt, _unprio(nxt).clamp(0, nv - 1))
-    nxt = torch.where(active & (nxt != PRIO_SENT),
-                      torch.minimum(nxt, hop), nxt)
-    return nxt, _changed(nxt, lab, src)
 
 
 def propagate_min_prio(src, dst, live, active, max_iters: int,
@@ -244,34 +174,28 @@ def propagate_min_prio(src, dst, live, active, max_iters: int,
     minimum hashed priority among {u : u ~> v within active}; nv where
     n/a."""
     nv = active.shape[-1]
-    if nv >= SENT_PREIMAGE:
+    if nv >= fref.SENT_PREIMAGE:
         raise ValueError("vertex ids must stay below the priority sentinel")
     vid = torch.arange(nv, dtype=torch.int32, device=active.device)
-    lab0 = torch.where(active, _prio(vid), PRIO_SENT)
-    lab, rounds = _fix(src, spec)(
-        lambda lab: prio_round(src, dst, live, active, lab, impl),
-        lab0, max_iters)
-    witness = torch.where(lab != PRIO_SENT, _unprio(lab), nv)
+    lab0 = torch.where(active, fref.prio(vid), fref.PRIO_SENT)
+    lab, rounds = _fix("prio", src, dst, live, active, lab0, max_iters,
+                       spec=spec, impl=impl)
+    witness = torch.where(lab != fref.PRIO_SENT, fref.unprio(lab), nv)
     return witness, rounds
 
 
 def fw_bw_round(src, dst, live, allowed, reached, impl: str = "auto"):
     """One round of :func:`fused_fw_bw_reach` on the stacked [2, NV]
     frontier, both directions in one launch: (next, changed)."""
-    incoming = frontier.frontier_gather(src, dst, live,
-                                        _reached_val(reached),
-                                        allowed.shape[-1], mode="pair",
-                                        impl=impl)
-    nxt = reached | ((incoming == 0) & allowed.unsqueeze(-2))
-    return nxt, _changed(nxt, reached, src)
+    return _round("pair", src, dst, live, allowed, reached, impl)
 
 
 def fused_fw_bw_reach(src, dst, live, seed_f, seed_b, allowed,
                       max_iters: int, spec=None, impl: str = "auto"):
     """FW(seed_f) and BW(seed_b) in one fixpoint over a stacked [2, NV]
     frontier.  Returns (fw, bw, rounds)."""
-    reached, rounds = _fix(src, lead(spec))(
-        lambda r: fw_bw_round(src, dst, live, allowed, r, impl),
+    reached, rounds = _fix(
+        "pair", src, dst, live, allowed,
         torch.stack([seed_f & allowed, seed_b & allowed], dim=-2),
-        max_iters)
+        max_iters, spec=lead(spec), impl=impl)
     return reached[..., 0, :], reached[..., 1, :], rounds

@@ -15,8 +15,8 @@ Tenant lanes: ``trim``, ``scc_static``, ``compact_region`` and
 ``scc_compact_region`` also take edges [T, C] with row-local ids and
 masks [T, NV] (``jax.vmap`` of the JAX functions).  Every count, cumsum,
 scatter and gather then runs along a lane's own row, never across rows,
-and each fixpoint and the outer loop read the host once a round for all
-lanes.  The dense tier runs lane by lane (``scc_dense_region`` on one
+each fixpoint is one launch for all lanes on the card, and the outer
+loop reads the host once a round for all lanes.  The dense tier runs lane by lane (``scc_dense_region`` on one
 row at a time).
 """
 from __future__ import annotations
@@ -32,39 +32,12 @@ from repro_torch.kernels.reach_blockmm import ops as reach_blockmm
 INT32_MAX = 2 ** 31 - 1
 
 
-def _degrees(src, dst, emask, nv):
-    w = emask.int()
-    indeg = torch.zeros(nv, dtype=torch.int32, device=w.device)
-    outdeg = torch.zeros(nv, dtype=torch.int32, device=w.device)
-    return indeg.index_add_(0, dst, w), outdeg.index_add_(0, src, w)
-
-
-def _degrees_lanes(src, dst, emask, nv):
-    """(indeg, outdeg) int32[T, NV], each lane counting its own row."""
-    w = emask.int()
-    zero = torch.zeros((w.shape[0], nv), dtype=torch.int32, device=w.device)
-    return (zero.scatter_add(1, dst.long(), w),
-            zero.scatter_add(1, src.long(), w))
-
-
 def trim(src, dst, live, unassigned, vid, ccid, max_iters: int):
-    """Iteratively peel zero-in/out-degree vertices into singleton SCCs."""
-    nv = unassigned.shape[-1]
-    lanes = src.dim() == 2
-    take = reach.take
-
-    def body(carry):
-        unassigned, ccid = carry
-        emask = live & take(unassigned, src) & take(unassigned, dst)
-        indeg, outdeg = (_degrees_lanes if lanes else _degrees)(
-            src, dst, emask, nv)
-        peel = unassigned & ((indeg == 0) | (outdeg == 0))
-        ccid = torch.where(peel, vid, ccid)
-        return ((unassigned & ~peel, ccid),
-                peel.any(-1) if lanes else peel.any())
-
-    (unassigned, ccid), _ = reach._fix(src)(body, (unassigned, ccid),
-                                            max_iters)
+    """Iteratively peel zero-in/out-degree vertices into singleton SCCs
+    (the ``trim`` form of the frontier fixpoint: one launch on the card)."""
+    (unassigned, ccid), _ = reach._fix("trim", src, dst, live, None,
+                                       (unassigned, ccid), max_iters,
+                                       vid=vid)
     return unassigned, ccid
 
 

@@ -1,10 +1,14 @@
 """Counted host synchronisations.
 
 JAX keeps the fixpoint loops, the repair gate and the tier dispatch on the
-device (``lax.while_loop`` / ``lax.cond``).  The port runs them as Python
-control flow, so each decision reads one value back from the device.
-Every such read goes through :data:`SYNCS`, so a run can report how many
-host syncs a step costs.
+device (``lax.while_loop`` / ``lax.cond``).  On the card the port runs
+each fixpoint as one kernel launch that loops on the device, as the while
+loop does, and reads nothing back.  The repair gate, the region sizes for
+the tier choice and the static SCC's outer loop are Python control flow,
+so each of those decisions reads one value back from the device; so does
+every fixpoint round where the per-round loop runs (CPU tensors, DTensors
+over a mesh).  Every such read goes through :data:`SYNCS`, so a run can
+report how many host syncs a step costs.
 """
 from __future__ import annotations
 

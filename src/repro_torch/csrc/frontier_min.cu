@@ -54,8 +54,28 @@
 // kernel adds the row offsets itself, one division per edge, so values
 // never cross rows and nobody builds offset copies of the edges.  T = 1 is
 // the single-graph call.
+//
+// Fixpoint form (every sweep of core/reach.py and scc.trim on the card).
+// Replaces the lax.while_loop that the JAX package runs each sweep in
+// (src/repro/core/reach.py:41 _fixpoint; scc.py:56 trim through it): the
+// port's per-round loop read each round's changed flag back to the host,
+// ~0.9 ms of host time a round beside ~0.1 ms of device time.  One
+// persistent cooperative launch runs all rounds: the gather above with
+// each edge's message read from the sweep's own state, a grid barrier,
+// each vertex word's update (which resets its gather word for the next
+// round and notes a change, one atomic a block), a barrier (one more
+// before the pointer-doubling hop of the label and priority forms), and
+// every thread reads whether any lane changed.  The round count and the
+// cap are JAX's exactly; tenant lanes freeze after their first unchanged
+// round.  Bound: bytes, a round's as for the gather form, times the
+// rounds; the barriers add a few microseconds a round.  Buffers the launch
+// rewrites are read through L2 (__ldcg), never the read-only path, which
+// may keep last round's words.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -85,12 +105,15 @@ __device__ __forceinline__ bool lowers(unsigned v, unsigned cur) {
   return kMode == kOr ? (v & ~cur) != 0u : v < cur;
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(kThreads)
-    gather_rows(const int* __restrict__ src, const int* __restrict__ dst,
-                const uint8_t* __restrict__ live,
-                const unsigned* __restrict__ val, unsigned* out, long long e,
-                long long total, int f, int n_src, int nv) {
+// One pass over the edge slots, grid-strided: out[row, f, to] <- min (OR)
+// msg(row, f, from) along every live edge whose ids fall in range.  ``msg``
+// gives each edge's message (the identity drops it) and ``msg.lane(row)``
+// whether row takes part at all.
+template <int kMode, class Msg>
+__device__ __forceinline__ void gather_edges(
+    const int* __restrict__ src, const int* __restrict__ dst,
+    const uint8_t* __restrict__ live, const Msg& msg, unsigned* out,
+    long long e, long long total, int f, int n_src, int nv) {
   const long long tile = (long long)kThreads * kUnroll;
   for (long long base = blockIdx.x * tile + threadIdx.x; base < total;
        base += (long long)gridDim.x * tile) {
@@ -106,8 +129,8 @@ __global__ void __launch_bounds__(kThreads)
       s[k] = in ? src[i] : -1;
       d[k] = in ? dst[i] : -1;
       // unsigned compares drop -1 padding and junk slots in one test
-      ok[k] = in && live[i] && (unsigned)s[k] < (unsigned)n_src &&
-              (unsigned)d[k] < (unsigned)nv;
+      ok[k] = in && msg.lane(row[k]) && live[i] &&
+              (unsigned)s[k] < (unsigned)n_src && (unsigned)d[k] < (unsigned)nv;
     }
     // each step is issued for all kUnroll edges before the next one waits
     // on it: gather the values, read the words they would lower, then
@@ -120,8 +143,7 @@ __global__ void __launch_bounds__(kThreads)
         // pair mode (n_src == nv): row 1 runs along dst -> src
         const bool back = kMode == kPair && r == 1;
         const int from = back ? d[k] : s[k], to = back ? s[k] : d[k];
-        v[k] = ok[k] ? __ldg(val + (row[k] * f + r) * n_src + from)
-                     : identity<kMode>();
+        v[k] = ok[k] ? msg(row[k], r, from) : identity<kMode>();
         o[k] = out + (row[k] * f + r) * nv + to;
       }
 #pragma unroll
@@ -137,6 +159,320 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+}
+
+// The gather form's messages: val[row, f, src], read once, never written.
+struct ValMsg {
+  const unsigned* __restrict__ val;
+  int f, n_src;
+  __device__ bool lane(long long) const { return true; }
+  __device__ unsigned operator()(long long row, int r, int from) const {
+    return __ldg(val + (row * f + r) * n_src + from);
+  }
+};
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+    gather_rows(const int* __restrict__ src, const int* __restrict__ dst,
+                const uint8_t* __restrict__ live,
+                const unsigned* __restrict__ val, unsigned* out, long long e,
+                long long total, int f, int n_src, int nv) {
+  gather_edges<kMode>(src, dst, live, ValMsg{val, f, n_src}, out, e, total,
+                      f, n_src, nv);
+}
+
+// ---------------------------------------------------------- fixpoint ---
+
+enum Form { kReach = 0, kPairForm = 1, kLabel = 2, kPrio = 3, kOrForm = 4,
+            kTrim = 5 };
+constexpr int kInt32Max = 0x7FFFFFFF;
+constexpr unsigned kPrioInv = 0x0E8B2F51u;  // 0x9E3779B1^-1 mod 2^32
+constexpr int kMaxLanes = 32 * 1024;  // one byte of shared memory a lane
+
+struct FixArgs {
+  const int* src;
+  const int* dst;
+  const uint8_t* live;
+  const uint8_t* mask;  // allowed / active, [T, nv]; null for trim
+  void* state;          // [T, f, nv]: bytes (reach, pair, trim) or words
+  int* ccid;            // trim: [T, nv]
+  const int* vid;       // trim: [nv]
+  unsigned* out;        // [T, f, nv] scratch: the round's gather
+  unsigned* hop;        // [T, nv] scratch: a round's labels before the hop
+  int* flags;           // [4 T + 2] scratch, see fixpoint_rounds
+  int* rounds;          // [T] out
+  unsigned long long* tally;  // [6] or null: rounds run, by form
+  long long e, total;   // edges a row, T * e
+  int t, f, nv, shortcut, max_iters;
+};
+
+template <int kForm>
+__host__ __device__ constexpr int mode_of() {
+  return kForm == kPairForm ? kPair : (kForm == kOrForm ? kOr : kMin);
+}
+
+// A round's messages, read from the state the previous round left.  The
+// state is rewritten inside the launch, so it is read through L2 (__ldcg):
+// the read-only path could hand back last round's words.
+template <int kForm>
+struct FixMsg {
+  const void* state;
+  const uint8_t* mask;
+  const unsigned char* act;  // shared: which lanes run this round
+  int f, nv;
+  __device__ bool lane(long long row) const { return act[row]; }
+  __device__ unsigned operator()(long long row, int r, int from) const {
+    const long long at = (row * f + r) * nv + from;
+    if (kForm == kReach || kForm == kPairForm)
+      return __ldcg(static_cast<const unsigned char*>(state) + at)
+                 ? 0u : kSent32;
+    if (kForm == kOrForm)
+      return __ldcg(static_cast<const unsigned*>(state) + at);
+    // label, prio: only vertices inside the mask send
+    return __ldg(mask + row * nv + from)
+               ? __ldcg(static_cast<const unsigned*>(state) + at) : kSent32;
+  }
+};
+
+// trim's gather: flag 1 on the head and 2 on the tail of every live edge
+// whose ends are both unassigned (in- and out-degree above zero)
+__device__ __forceinline__ void trim_edges(const FixArgs& a,
+                                           const unsigned char* act) {
+  const auto* un = static_cast<const unsigned char*>(a.state);
+  const long long step = (long long)gridDim.x * kThreads;
+  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
+       i < a.total; i += step) {
+    const long long row = a.t == 1 ? 0 : i / a.e;
+    if (!act[row] || !a.live[i]) continue;
+    const int s = a.src[i], d = a.dst[i];
+    if ((unsigned)s >= (unsigned)a.nv || (unsigned)d >= (unsigned)a.nv)
+      continue;
+    const long long base = row * a.nv;
+    if (!__ldcg(un + base + s) || !__ldcg(un + base + d)) continue;
+    if (!(__ldcg(a.out + base + d) & 1u)) atomicOr(a.out + base + d, 1u);
+    if (!(__ldcg(a.out + base + s) & 2u)) atomicOr(a.out + base + s, 2u);
+  }
+}
+
+// Which lanes a thread changed, flushed one atomic per lane it touched;
+// a block whose changes all fall in one lane flushes once.
+struct Changes {
+  long long row = -1;
+  bool pending = false, any = false;
+  __device__ void note(long long r, bool changed, int* lane_flag) {
+    if (r != row) {
+      if (pending) atomicOr(lane_flag + row, 1);
+      row = r;
+      pending = false;
+    }
+    pending |= changed;
+    any |= changed;
+  }
+  __device__ void flush(int* lane_flag, int* any_flag, long long* s_row) {
+    if (threadIdx.x == 0) *s_row = -1;
+    __syncthreads();
+    if (pending) *s_row = row;
+    __syncthreads();
+    const long long rep = *s_row;
+    if (__syncthreads_and(!pending || row == rep)) {
+      if (threadIdx.x == 0 && rep >= 0) atomicOr(lane_flag + rep, 1);
+    } else if (pending) {
+      atomicOr(lane_flag + row, 1);
+    }
+    if (__syncthreads_or(any) && threadIdx.x == 0) atomicOr(any_flag, 1);
+  }
+};
+
+// The round's update of word i (lane row, vertex v) from the gathered
+// word ``inc``; hop forms leave the update in a.hop and finish it in
+// hop_update after a grid barrier.  Notes whether the state changed.
+template <int kForm>
+__device__ __forceinline__ void update(const FixArgs& a, long long i,
+                                       long long row, long long mv,
+                                       unsigned inc, bool hop, Changes& ch,
+                                       int* lane_flag) {
+  if (kForm == kReach || kForm == kPairForm) {
+    auto* st = static_cast<unsigned char*>(a.state);
+    const unsigned char old = __ldcg(st + i);
+    const unsigned char nxt = old | (inc == 0u && a.mask[mv]);
+    if (nxt != old) st[i] = nxt;
+    ch.note(row, nxt != old, lane_flag);
+  } else if (kForm == kOrForm) {
+    auto* st = static_cast<unsigned*>(a.state);
+    const unsigned old = __ldcg(st + i);
+    const unsigned nxt = old | (a.mask[mv] ? inc : 0u);
+    if (nxt != old) st[i] = nxt;
+    ch.note(row, nxt != old, lane_flag);
+  } else if (kForm == kTrim) {
+    auto* un = static_cast<unsigned char*>(a.state);
+    const bool peel = __ldcg(un + i) && inc != 3u;
+    if (peel) {
+      un[i] = 0;
+      a.ccid[i] = __ldg(a.vid + (mv - row * a.nv));
+    }
+    ch.note(row, peel, lane_flag);
+  } else if (kForm == kLabel) {
+    auto* st = static_cast<int*>(a.state);
+    const int old = __ldcg(st + i);
+    int in = (int)inc;
+    if (in < 0) in = kInt32Max;  // a uint32 >= 2^31 clamps to INT32_MAX
+    const int nxt = a.mask[mv] ? min(old, in) : old;
+    if (hop) {
+      a.hop[i] = (unsigned)nxt;
+      return;
+    }
+    if (nxt != old) st[i] = nxt;
+    ch.note(row, nxt != old, lane_flag);
+  } else {  // kPrio
+    const unsigned old = __ldcg(static_cast<unsigned*>(a.state) + i);
+    a.hop[i] = a.mask[mv] ? min(old, inc) : old;
+  }
+}
+
+// The pointer-doubling hop: lab[v] <- min(lab[v], lab[w]) through the
+// vertex w a label names (label: the label itself; prio: its preimage).
+template <int kForm>
+__device__ __forceinline__ void hop_update(const FixArgs& a, long long i,
+                                           long long row, long long mv,
+                                           Changes& ch, int* lane_flag) {
+  const unsigned nxt = __ldcg(a.hop + i);
+  const bool on = a.mask[mv];
+  long long w;
+  bool jump;
+  if (kForm == kLabel) {
+    w = (int)nxt;
+    jump = on && (int)nxt < kInt32Max;
+  } else {
+    w = (int)(nxt * kPrioInv);
+    jump = on && nxt != kSent32;
+  }
+  w = w < 0 ? 0 : (w > a.nv - 1 ? a.nv - 1 : w);
+  unsigned fin = nxt;
+  if (jump) {
+    const unsigned h = __ldcg(a.hop + row * a.nv + w);
+    fin = kForm == kLabel ? (unsigned)min((int)nxt, (int)h) : min(nxt, h);
+  }
+  auto* st = static_cast<unsigned*>(a.state);
+  const unsigned old = __ldcg(st + i);
+  if (fin != old) st[i] = fin;
+  ch.note(row, fin != old, lane_flag);
+}
+
+// Every round of one fixpoint in one cooperative launch, JAX's
+// ``while changed & (it < max_iters)``.  A round: the edge gather into out
+// (grid barrier), each vertex word's update, which resets its out word
+// for the next round and notes a change (a barrier; hop forms one more
+// before the hop), then every thread reads whether any lane changed.
+//
+// flags: L[2][T] (lane ran in the round of that parity), C[2][T] (lane
+// changed in it), G[2] (some lane changed).  Lane t runs round r when it
+// ran round r - 1 and changed there: L[q] & C[q] with q the parity of
+// r - 1, both untouched during round r (round -1 is all ones).  Round r
+// writes L[p] and zeroes C[p] and G[p] (p = r & 1) before its first
+// barrier; they were last read in round r - 1.  A lane that stopped is
+// frozen: its edges and words are skipped, so it writes nothing more.
+template <int kForm>
+__global__ void __launch_bounds__(kThreads) fixpoint_rounds(FixArgs a) {
+  extern __shared__ unsigned char act[];
+  __shared__ long long s_row;
+  cg::grid_group grid = cg::this_grid();
+  const long long first = blockIdx.x * (long long)kThreads + threadIdx.x;
+  const long long step = (long long)gridDim.x * kThreads;
+  const int t = a.t;
+  const long long fnv = (long long)a.f * a.nv;
+  const long long n = t * fnv;
+  const bool flat = t == 1 && a.f == 1;
+  const bool hop = kForm == kPrio || (kForm == kLabel && a.shortcut);
+  const unsigned ident = mode_of<kForm>() == kOr || kForm == kTrim
+                             ? 0u : kSent32;
+  int* lanes_ran = a.flags;
+  int* lanes_changed = a.flags + 2 * t;
+  int* any_changed = a.flags + 4 * t;
+  for (long long i = first; i < n; i += step) a.out[i] = ident;
+  for (long long i = first; i < t; i += step) {
+    lanes_ran[t + i] = 1;
+    lanes_changed[t + i] = 1;
+    a.rounds[i] = 0;
+  }
+  grid.sync();
+  int it = 0;
+  while (it < a.max_iters) {
+    const int p = it & 1, q = p ^ 1;
+    for (int i = threadIdx.x; i < t; i += kThreads)
+      act[i] = __ldcg(lanes_ran + q * t + i) &&
+               __ldcg(lanes_changed + q * t + i);
+    __syncthreads();
+    for (long long i = first; i < t; i += step) {
+      lanes_ran[p * t + i] = act[i];
+      lanes_changed[p * t + i] = 0;
+      a.rounds[i] += act[i];
+    }
+    if (first == 0) any_changed[p] = 0;
+    if (kForm == kTrim)
+      trim_edges(a, act);
+    else
+      gather_edges<mode_of<kForm>()>(a.src, a.dst, a.live,
+                                     FixMsg<kForm>{a.state, a.mask, act, a.f, a.nv}, a.out, a.e,
+                                     a.total, a.f, a.nv, a.nv);
+    grid.sync();
+    Changes ch;
+    int* lane_flag = lanes_changed + p * t;
+    for (long long i = first; i < n; i += step) {
+      const long long row = t == 1 ? 0 : i / fnv;
+      if (!act[row]) continue;
+      const long long mv = row * a.nv + (flat ? i : i % a.nv);
+      const unsigned inc = __ldcg(a.out + i);
+      a.out[i] = ident;
+      update<kForm>(a, i, row, mv, inc, hop, ch, lane_flag);
+    }
+    if (hop) {
+      grid.sync();
+      for (long long i = first; i < n; i += step) {
+        const long long row = t == 1 ? 0 : i / fnv;
+        if (!act[row]) continue;
+        hop_update<kForm>(a, i, row, row * a.nv + (flat ? i : i % a.nv),
+                          ch, lane_flag);
+      }
+    }
+    ch.flush(lane_flag, any_changed + p, &s_row);
+    grid.sync();
+    ++it;
+    if (!__ldcg(any_changed + p)) break;
+  }
+  if (first == 0 && a.tally != nullptr)
+    atomicAdd(a.tally + kForm, (unsigned long long)it);
+}
+
+cudaError_t launched(cudaError_t err) {
+  cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+// The cooperative grid: enough blocks for the larger of the edge passes
+// and the vertex words, at most the blocks the card holds at once (the
+// occupancy of this kernel at T bytes of shared memory on every SM).
+template <int kForm>
+cudaError_t launch_fixpoint(FixArgs a, cudaStream_t stream) {
+  const auto kernel = fixpoint_rounds<kForm>;
+  const size_t smem = (size_t)a.t;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  long long work = (a.total + kUnroll - 1) / kUnroll;
+  const long long words = (long long)a.t * a.f * a.nv;
+  if (words > work) work = words;
+  const long long want = (work + kThreads - 1) / kThreads;
+  const long long most = (long long)per_sm * sms;
+  const int grid = (int)(want < most ? (want > 0 ? want : 1) : most);
+  void* args[] = {&a};
+  return launched(cudaLaunchCooperativeKernel(
+      (const void*)kernel, dim3(grid), dim3(kThreads), args, smem, stream));
 }
 
 // ------------------------------------------------------------ direct ---
@@ -217,4 +553,40 @@ extern "C" int frontier_min_launch(const void* dst, const void* msg, void* out,
         static_cast<const int*>(dst),
         static_cast<const unsigned long long*>(msg), o, e, f, nv);
   return (int)cudaGetLastError();
+}
+
+// Fixpoint form: every round of one SMSCC sweep (``form``, the order of
+// ref.FORMS) until a round changes nothing or max_iters rounds have run,
+// in place on ``state`` ([T, f, nv]: uint8 for reach / pair / trim, int32
+// words for label / prio / or) and trim's ccid [T, nv].  src, dst int32
+// [T, e] and live uint8 [T, e] as in the gather form; mask uint8 [T, nv]
+// (null for trim); vid int32 [nv] (trim).  Scratch: out int32 [T f nv],
+// hop int32 [T nv] (label with shortcut, prio), flags int32 [4 T + 2].
+// Writes rounds int32 [T], each lane's rounds, and adds the rounds run to
+// tally[form] (uint64 [6]) unless it is null.  Returns the first CUDA
+// error of the launch.
+extern "C" int frontier_fixpoint_launch(
+    const void* src, const void* dst, const void* live, const void* mask,
+    void* state, void* ccid, const void* vid, void* out, void* hop,
+    void* flags, void* rounds, void* tally, int t, long long e, int f,
+    int nv, int form, int shortcut, int max_iters, void* stream) {
+  if (t < 1 || t > kMaxLanes) return (int)cudaErrorInvalidValue;
+  FixArgs a{static_cast<const int*>(src), static_cast<const int*>(dst),
+            static_cast<const uint8_t*>(live),
+            static_cast<const uint8_t*>(mask), state,
+            static_cast<int*>(ccid), static_cast<const int*>(vid),
+            static_cast<unsigned*>(out), static_cast<unsigned*>(hop),
+            static_cast<int*>(flags), static_cast<int*>(rounds),
+            static_cast<unsigned long long*>(tally), e, (long long)t * e, t,
+            f, nv, shortcut, max_iters};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (form) {
+    case kReach: return (int)launch_fixpoint<kReach>(a, s);
+    case kPairForm: return (int)launch_fixpoint<kPairForm>(a, s);
+    case kLabel: return (int)launch_fixpoint<kLabel>(a, s);
+    case kPrio: return (int)launch_fixpoint<kPrio>(a, s);
+    case kOrForm: return (int)launch_fixpoint<kOrForm>(a, s);
+    case kTrim: return (int)launch_fixpoint<kTrim>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

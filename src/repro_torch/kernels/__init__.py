@@ -34,8 +34,13 @@ def lane_launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Every launch count to 0, and the fixpoint launches' round counters
+    on the card (``frontier_expand.ops.fixpoint_rounds``)."""
+    from repro_torch.kernels.frontier_expand import ops as fops
     for fns in _wrappers().values():
         for fn in fns:
             fn.launches = 0
-            if hasattr(fn, "lane_launches"):
-                fn.lane_launches = 0
+            for attr in ("lane_launches", "fixpoint_launches"):
+                if hasattr(fn, attr):
+                    setattr(fn, attr, 0)
+    fops.reset_fixpoint_rounds()

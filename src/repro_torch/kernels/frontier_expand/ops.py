@@ -2,16 +2,22 @@
 kernel (``csrc/frontier_min.cu``) for CUDA tensors.
 
 Replaces ``repro.kernels.frontier_expand.ops.frontier_min`` and its TPU
-kernel ``segment_min_u32``.  Two entries launch the one kernel file and
-count on ``frontier_min.launches``:
+kernel ``segment_min_u32``, and the ``lax.while_loop`` around it in
+``repro.core.reach._fixpoint``.  Three entries launch the one kernel file
+and count on ``frontier_min.launches``:
 
 - :func:`frontier_min` is the TPU kernel's own signature (per-edge
   messages, uint32 values carried in int64);
 - :func:`frontier_gather` fuses the gather of each edge's message into the
   kernel and holds values in 32-bit words; every round of
-  ``core/reach.py`` runs through it.  Given [T, E] edges it is the
-  tenant-row form (one launch for T graphs); those launches also count on
-  ``frontier_min.lane_launches``.
+  ``core/reach.py``'s per-round loop runs through it.  Given [T, E] edges
+  it is the tenant-row form (one launch for T graphs); those launches also
+  count on ``frontier_min.lane_launches``;
+- :func:`frontier_fixpoint` runs every round of one of ``core/reach.py``'s
+  sweeps (``ref.FORMS``) in one cooperative launch with no host read; its
+  launches also count on ``frontier_min.fixpoint_launches``, and the
+  rounds it ran on the card add up by form in a device counter
+  (:func:`fixpoint_rounds`).
 
 Unlike the TPU wrapper there is no size ceiling: the scatter reads each
 edge once whatever NV is.
@@ -43,8 +49,12 @@ def _lib():
     lib.frontier_gather_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.frontier_min_launch.restype = ctypes.c_int
-    lib.frontier_gather_launch.restype = ctypes.c_int
+    lib.frontier_fixpoint_launch.argtypes = [ctypes.c_void_p] * 12 + [
+        ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    for fn in (lib.frontier_min_launch, lib.frontier_gather_launch,
+               lib.frontier_fixpoint_launch):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -78,6 +88,7 @@ def frontier_min(dst: torch.Tensor, msg: torch.Tensor, nv: int, *,
 
 frontier_min.launches = 0
 frontier_min.lane_launches = 0
+frontier_min.fixpoint_launches = 0
 
 
 def frontier_gather(src: torch.Tensor, dst: torch.Tensor, live: torch.Tensor,
@@ -167,3 +178,134 @@ def _gather_lanes(src, dst, live, val, nv, mode, impl):
         frontier_min.launches += 1
         frontier_min.lane_launches += 1
     return out[:, 0] if squeeze else out
+
+
+# per form: the rows of its state (F; None: the state's own) and its dtype
+_FORM_STATE = {"reach": (1, torch.bool), "pair": (2, torch.bool),
+               "label": (1, torch.int32), "prio": (1, torch.int64),
+               "or": (None, torch.int32), "trim": (1, torch.bool)}
+# device -> int64[len(FORMS)]: rounds the fixpoint launches ran, by form
+_rounds_run: dict = {}
+
+
+def _tally(dev):
+    """The device's round counter, made by the first launch on ``dev``.
+    That launch must not be captured: a counter made inside a capture
+    would be zeroed by every replay, so the capture raises instead."""
+    t = _rounds_run.get(dev)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "frontier_fixpoint: the first launch on a card must run "
+                "outside a CUDA graph capture (it makes the card's round "
+                "counter); run one launch before capturing")
+        t = _rounds_run[dev] = torch.zeros(len(ref.FORMS), dtype=torch.int64,
+                                           device=dev)
+    return t
+
+
+def fixpoint_rounds() -> dict:
+    """Form -> rounds the fixpoint launches ran on the card since the last
+    :func:`reset_fixpoint_rounds` (a read of each card's counter; the
+    tenant-row form counts a launch's rounds once, however many lanes)."""
+    total = dict.fromkeys(ref.FORMS, 0)
+    for t in _rounds_run.values():
+        for form, n in zip(ref.FORMS, t.tolist()):
+            total[form] += n
+    return total
+
+
+def reset_fixpoint_rounds() -> None:
+    for t in _rounds_run.values():
+        t.zero_()
+
+
+def frontier_fixpoint(form: str, src: torch.Tensor, dst: torch.Tensor,
+                      live: torch.Tensor, mask, state, max_iters: int, *,
+                      shortcut: bool = False, vid=None, impl: str = "auto"):
+    """Every round of the fixpoint ``form`` (``ref.FORMS``) until a round
+    changes nothing or ``max_iters`` rounds have run, as JAX's
+    ``lax.while_loop`` runs it: ``(state, rounds)``, rounds int32 (0-d,
+    or [T] for tenant lanes) on the state's device.
+
+    src, dst: int32[E]; live: bool[E]; mask: bool[NV], the vertices the
+    sweep stays inside (None for trim); states as ``ref.round_body``
+    takes them: bool[NV] (reach), bool[2, NV] (pair), int32[NV] (label),
+    uint32 values in int64 [NV] (prio), int32 words [W, NV] (or),
+    (bool[NV], int32[NV]) (trim, with ``vid`` int32[NV]).  Tenant lanes:
+    [T, E] edges with row-local ids, a leading [T] on states and masks.
+    The input state is not written.
+
+    On the card one cooperative launch runs every round with no host
+    read; edges whose ids fall outside ``[0, NV)`` are dropped (the plain
+    version's trim takes none).
+    """
+    if form not in ref.FORMS:
+        raise ValueError(f"unknown form {form!r}; expected one of "
+                         f"{ref.FORMS}")
+    first = state[0] if form == "trim" else state
+    if first.device.type == "cpu":
+        return ref.frontier_fixpoint(form, src, dst, live, mask, state,
+                                     max_iters, shortcut=shortcut, vid=vid)
+    _build.require_kernel_impl(impl, "frontier_min")
+    dev = first.device
+    lanes = src.dim() == 2
+    nd = 2 if lanes else 1
+    _build.require(src, "src", torch.int32, nd, dev)
+    _build.require(dst, "dst", torch.int32, nd, dev)
+    _build.require(live, "live", torch.bool, nd, dev)
+    if dst.shape != src.shape or live.shape != src.shape:
+        raise ValueError("src, dst and live must share one shape")
+    t = src.shape[0] if lanes else 1
+    f, dtype = _FORM_STATE[form]
+    rows = f is None or f > 1
+    # the state the launch rewrites in place, as bytes or 32-bit words
+    work = first.clone(memory_format=torch.contiguous_format)
+    _build.require(work, "state", dtype, nd + rows, dev)
+    if lanes and first.shape[0] != t:
+        raise ValueError(f"{t} rows of edges take states [{t}, ...], got "
+                         f"{tuple(first.shape)}")
+    nv = first.shape[-1]
+    f = first.shape[-2] if rows else 1
+    if form == "pair" and f != 2:
+        raise ValueError(f"pair takes a [2, {nv}] state per lane")
+    aux = vid_ptr = mask_ptr = 0
+    if form == "trim":
+        ccid = state[1].clone(memory_format=torch.contiguous_format)
+        _build.require(ccid, "ccid", torch.int32, nd, dev)
+        _build.require(vid, "vid", torch.int32, 1, dev)
+        if ccid.shape != first.shape or vid.shape[0] != nv:
+            raise ValueError("trim takes ccid shaped as unassigned and "
+                             f"vid [{nv}]")
+        aux, vid_ptr = ccid.data_ptr(), vid.data_ptr()
+    else:
+        mask = mask.contiguous()
+        _build.require(mask, "mask", torch.bool, nd, dev)
+        if mask.shape != (*first.shape[:-1 - rows], nv):
+            raise ValueError(f"mask has shape {tuple(mask.shape)} for a "
+                             f"state {tuple(first.shape)}")
+        mask_ptr = mask.data_ptr()
+    if form == "prio":
+        work = ref.u32_to_words(work)
+    out = torch.empty(t * f * nv, dtype=torch.int32, device=dev)
+    hop = (torch.empty(t * nv, dtype=torch.int32, device=dev)
+           if form == "prio" or (form == "label" and shortcut) else out)
+    flags = torch.empty(4 * t + 2, dtype=torch.int32, device=dev)
+    rounds = torch.empty(t, dtype=torch.int32, device=dev)
+    tally = _tally(dev)
+    _build.check(_lib().frontier_fixpoint_launch(
+        src.data_ptr(), dst.data_ptr(), live.data_ptr(), mask_ptr,
+        work.data_ptr(), aux, vid_ptr, out.data_ptr(), hop.data_ptr(),
+        flags.data_ptr(), rounds.data_ptr(), tally.data_ptr(), t,
+        src.shape[-1], f, nv,
+        ref.FORMS.index(form), int(shortcut), max(int(max_iters), 0),
+        _build.stream_ptr(out)), "frontier_fixpoint")
+    frontier_min.launches += 1
+    frontier_min.fixpoint_launches += 1
+    if lanes:
+        frontier_min.lane_launches += 1
+    if form == "prio":
+        work = ref.words_to_u32(work)
+    if form == "trim":
+        work = (work, ccid)
+    return work, rounds if lanes else rounds[0]

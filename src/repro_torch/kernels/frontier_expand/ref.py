@@ -7,14 +7,39 @@ in int64, values in ``[0, 2^32)``.  The gather form holds uint32 values in
 32-bit words (int32 tensors whose bits are read unsigned), the kernel's
 carrier; :func:`words_to_u32` and :func:`u32_to_words` convert.
 ``SENTINEL`` is the min-semiring identity; its word is -1.
+
+The fixpoint form (:func:`frontier_fixpoint`, the plain version of the
+kernel's ``frontier_fixpoint_launch``) runs every round of one of the
+SMSCC sweeps, :data:`FORMS`, until a round changes nothing or
+``max_iters`` rounds have run.  :func:`round_body` is each form's round,
+written once: the kernel's plain version runs it over the plain gather,
+``core/reach.py``'s per-round loop over the gather's wrapper.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+
+from repro_torch.kernels.u32 import mul32
 
 SENTINEL = 0xFFFFFFFF
 SENT_WORD = -1  # SENTINEL's 32-bit word
 MODES = ("min", "pair", "or")
+INT32_MAX = 2 ** 31 - 1
+# the fixpoint forms, in the kernel's order: boolean reachability, the
+# fused FW/BW pair, min-label propagation (optionally pointer doubling),
+# hashed-priority witnesses, packed Reachable batches, and trim's peel
+FORMS = ("reach", "pair", "label", "prio", "or", "trim")
+
+# Bijective priority hash (odd multiplier mod 2^32) and its inverse: the
+# JAX package's hashed priorities, so pointer doubling collapses monotone
+# id runs.  Priorities use all 32 bits and are held as uint32 values in
+# int64, so torch compares them unsigned; they pass to the kernel as words.
+P_MUL = 0x9E3779B1
+P_INV = pow(P_MUL, -1, 2 ** 32)
+PRIO_SENT = 0xFFFFFFFF
+SENT_PREIMAGE = (0xFFFFFFFF * P_INV) % (2 ** 32)
 
 
 def frontier_min(dst: torch.Tensor, msg: torch.Tensor, nv: int
@@ -111,3 +136,156 @@ def frontier_gather_lanes(src, dst, live, val, nv: int, mode: str = "min"
     flat = val.permute(1, 0, 2).reshape(f, t * n_src)
     out = frontier_gather(fsrc, fdst, keep.reshape(-1), flat, t * nv, mode)
     return out.reshape(f, t, nv).permute(1, 0, 2).contiguous()
+
+
+def gather(src, dst, live, val, nv: int, mode: str = "min") -> torch.Tensor:
+    """The gather form with the wrapper's shapes: val [n_src] or [F,
+    n_src]; given [T, E] edges, tenant rows with val [T, n_src] or [T, F,
+    n_src]."""
+    lanes = src.dim() == 2
+    squeeze = val.dim() == (2 if lanes else 1)
+    v = val.unsqueeze(-2) if squeeze else val
+    out = (frontier_gather_lanes if lanes else frontier_gather)(
+        src, dst, live, v, nv, mode)
+    return out.squeeze(-2) if squeeze else out
+
+
+def prio(v: torch.Tensor) -> torch.Tensor:
+    return mul32(v.long(), P_MUL)
+
+
+def unprio(p: torch.Tensor) -> torch.Tensor:
+    """The inverse hash as int32 with two's-complement wrap, as JAX's
+    uint32 -> int32 astype gives it."""
+    return u32_to_words(mul32(p, P_INV))
+
+
+def take(x, idx):
+    """``x[idx]``, per tenant row for [T, ...] ``x`` (a gather along the
+    last axis)."""
+    return x[idx] if x.dim() == 1 else x.gather(-1, idx.long())
+
+
+def _changed(new, old, lanes: bool):
+    """Whether a round changed anything: a scalar, or one flag per tenant
+    lane."""
+    diff = new != old
+    return diff.flatten(1).any(1) if lanes else diff.any()
+
+
+def _trim_round(src, dst, live, state, vid, lanes: bool):
+    unassigned, ccid = state
+    emask = (live & take(unassigned, src) & take(unassigned, dst)).int()
+    zero = torch.zeros(unassigned.shape, dtype=torch.int32,
+                       device=emask.device)
+    if lanes:  # each lane counts its own row
+        indeg = zero.scatter_add(1, dst.long(), emask)
+        outdeg = zero.scatter_add(1, src.long(), emask)
+    else:
+        indeg = zero.index_add(0, dst, emask)
+        outdeg = zero.index_add(0, src, emask)
+    peel = unassigned & ((indeg == 0) | (outdeg == 0))
+    return (unassigned & ~peel, torch.where(peel, vid, ccid)), peel.any(-1)
+
+
+def round_body(form: str, src, dst, live, mask, state, *,
+               shortcut: bool = False, vid=None,
+               gather: Callable = gather):
+    """One round of the fixpoint ``form``: (next, changed).  ``mask`` is
+    the vertex mask the sweep stays inside (``allowed`` / ``active``,
+    bool[NV]); ``gather`` computes the round's segment-min (or OR) with
+    :func:`gather`'s signature.  States, as ``core/reach.py`` holds them:
+
+    - ``reach``: bool[NV] reached; ``pair``: bool[2, NV], row 0 forward,
+      row 1 backward;
+    - ``label``: int32[NV] labels, an incoming word read as a negative
+      int32 (a uint32 >= 2^31) clamped to INT32_MAX as JAX's
+      ``minimum(incoming, INT32_MAX)`` does; ``shortcut`` adds pointer
+      doubling lab[v] <- min(lab[v], lab[lab[v]]);
+    - ``prio``: uint32 priorities in int64, then the hop through the
+      witness ``unprio(lab[v])``;
+    - ``or``: Q frontiers packed 32 to a word, int32[W, NV];
+    - ``trim``: (unassigned bool[NV], ccid int32[NV]); a vertex with no
+      in- or no out-edge inside the unassigned set is peeled to ``vid``.
+
+    Tenant lanes: edges [T, C] with row-local ids and every state and
+    mask with a leading [T]; ``changed`` is then bool[T]."""
+    lanes = src.dim() == 2
+    if form == "trim":
+        return _trim_round(src, dst, live, state, vid, lanes)
+    nv = mask.shape[-1]
+    if form in ("reach", "pair"):
+        inc = gather(src, dst, live, state.int() - 1, nv,
+                     mode="pair" if form == "pair" else "min")
+        nxt = state | ((inc == 0) & (mask.unsqueeze(-2) if form == "pair"
+                                     else mask))
+    elif form == "or":
+        inc = gather(src, dst, live, state, nv, mode="or")
+        # all 32 bits where allowed (word -1), none elsewhere
+        nxt = state | (inc & -mask.int().unsqueeze(-2))
+    elif form == "label":
+        inc = gather(src, dst, live, torch.where(mask, state, SENT_WORD), nv)
+        inc = torch.where(inc < 0, INT32_MAX, inc)
+        nxt = torch.where(mask, torch.minimum(state, inc), state)
+        if shortcut:
+            hop = take(nxt, nxt.clamp(0, nv - 1))
+            nxt = torch.where(mask & (nxt < INT32_MAX),
+                              torch.minimum(nxt, hop), nxt)
+    elif form == "prio":
+        inc = words_to_u32(gather(
+            src, dst, live, u32_to_words(torch.where(mask, state, PRIO_SENT)),
+            nv))
+        nxt = torch.where(mask, torch.minimum(state, inc), state)
+        hop = take(nxt, unprio(nxt).clamp(0, nv - 1))
+        nxt = torch.where(mask & (nxt != PRIO_SENT),
+                          torch.minimum(nxt, hop), nxt)
+    else:
+        raise ValueError(f"unknown form {form!r}; expected one of {FORMS}")
+    return nxt, _changed(nxt, state, lanes)
+
+
+def _freeze(active, new, old):
+    if isinstance(new, tuple):
+        return tuple(_freeze(active, n, o) for n, o in zip(new, old))
+    return torch.where(active.view(-1, *([1] * (new.dim() - 1))), new, old)
+
+
+def fixpoint_loop(body, init, max_iters: int, lanes: bool, read=bool):
+    """JAX's ``while changed and rounds < max_iters: state, changed =
+    body(state)`` as a host loop, ``read`` bringing each round's flag to
+    the host.  Returns (state, rounds): int32, 0-d or [T] for tenant
+    lanes.  A lane leaves the loop after its first unchanged round and
+    keeps its state from then on (``torch.where(active, new, old)``); the
+    loop ends when no lane is active or at ``max_iters``, so each lane's
+    state and rounds are its solo run's."""
+    first = init[0] if isinstance(init, tuple) else init
+    if not lanes:
+        state, it, changed = init, 0, True
+        while changed and it < max_iters:
+            state, ch = body(state)
+            changed = read(ch)
+            it += 1
+        return state, torch.tensor(it, dtype=torch.int32,
+                                   device=first.device)
+    state = init
+    rounds = torch.zeros(first.shape[0], dtype=torch.int32,
+                         device=first.device)
+    active = torch.ones_like(rounds, dtype=torch.bool)
+    for _ in range(max_iters):
+        new, ch = body(state)
+        state = _freeze(active, new, state)
+        rounds = rounds + active.int()
+        active = active & ch
+        if not read(active.any()):
+            break
+    return state, rounds
+
+
+def frontier_fixpoint(form: str, src, dst, live, mask, state,
+                      max_iters: int, *, shortcut: bool = False, vid=None):
+    """Every round of the fixpoint ``form`` (:func:`round_body`) until one
+    changes nothing or ``max_iters`` have run: (state, rounds)."""
+    return fixpoint_loop(
+        lambda s: round_body(form, src, dst, live, mask, s,
+                             shortcut=shortcut, vid=vid),
+        state, max_iters, src.dim() == 2)

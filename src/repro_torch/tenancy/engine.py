@@ -6,9 +6,10 @@ tenant axis and runs its compiled scan step under ``jax.vmap``.  The port
 stacks the tensors the same way (``graph_state.stack``) and runs
 :func:`repro_torch.core.dynamic.apply_batch_scan_lanes`: phases 1-4 are
 one set of kernel launches for every lane (the edge table's kernels take
-the lanes as rows), every fixpoint round is one ``frontier_min`` launch
-and one host read for all lanes, and the repair gate, the region sizes
-and the tier choice are one read each per step.  T tenants then share
+the lanes as rows), every fixpoint is one ``frontier_min`` launch for all
+lanes with no host read (one launch and one read a round on the CPU),
+and the repair gate, the region sizes and the tier choice are one read
+each per step.  T tenants then share
 the host syncs that one solo step pays.
 
 Design rules (all load-bearing for the differential oracle test):

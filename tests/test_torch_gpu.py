@@ -126,6 +126,172 @@ def test_reach_on_card_matches_cpu(cuda, q):
                     else a == b)
 
 
+# ------------------------------------------------------- fixpoints ---
+
+FIX_FORMS = [("reach", False), ("pair", False), ("label", False),
+             ("label", True), ("prio", False), ("or", False),
+             ("trim", False)]
+
+
+def _fix_case(form, seed, nv, e, depth):
+    """One graph of ``form``'s fixpoint on the CPU: a chain 0 -> ... ->
+    depth in sparse random edges (none leaves the chain), dead slots (-1
+    junk ids but for trim), a mask with holes off the chain.  Returns
+    (src, dst, live, mask, state)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(depth + 1, nv, e).astype(np.int32)
+    dst = rng.integers(0, nv, e).astype(np.int32)
+    src[:depth], dst[:depth] = np.arange(depth), np.arange(1, depth + 1)
+    live = rng.random(e) < 0.9
+    live[:depth] = True
+    live[-3:] = False
+    if form != "trim":  # junk slots; trim's callers never pass one
+        src[-3:] = -1
+    mask = rng.random(nv) < 0.9
+    mask[:depth + 1] = True
+    seeds = torch.from_numpy(rng.random((40, nv)) < 2.0 / nv)
+    seeds[:, 0] = True
+    m = torch.from_numpy(mask)
+    vid = torch.arange(nv, dtype=torch.int32)
+    state = {"reach": lambda: seeds[0] & m,
+             "pair": lambda: torch.stack([seeds[0] & m, seeds[1] & m]),
+             "label": lambda: torch.where(m, vid, 2 ** 31 - 1),
+             "prio": lambda: torch.where(m, fref.prio(vid), fref.PRIO_SENT),
+             "or": lambda: fref.pack_bits(seeds & m[None, :]),
+             "trim": lambda: (m, torch.full((nv,), 2 ** 31 - 1,
+                                            dtype=torch.int32))}[form]()
+    return (torch.from_numpy(src), torch.from_numpy(dst),
+            torch.from_numpy(live), None if form == "trim" else m, state)
+
+
+def _fix_stack(cases):
+    def stack(xs):
+        if xs[0] is None:
+            return None
+        if isinstance(xs[0], tuple):
+            return tuple(torch.stack(c) for c in zip(*xs))
+        return torch.stack(xs)
+    return [stack(list(c)) for c in zip(*cases)]
+
+
+def _to(x, dev):
+    if isinstance(x, tuple):
+        return tuple(_to(y, dev) for y in x)
+    return None if x is None else x.to(dev)
+
+
+def _same(a, b):
+    if isinstance(a, tuple):
+        return all(_same(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("cap", [7, 5000])
+@pytest.mark.parametrize("t_n", [None, 3, 256])
+@pytest.mark.parametrize("form,shortcut", FIX_FORMS)
+def test_fixpoint_kernel(cuda, form, shortcut, t_n, cap):
+    """One launch of the fixpoint kernel == the per-round loop on the card
+    (one frontier_gather launch and one read a round) == the plain version
+    on CPU copies: state and rounds exactly, for one graph (``t_n`` None)
+    and tenant lanes whose chains differ in depth (cap 7 cuts the deep
+    ones unconverged)."""
+    if t_n is None:
+        args = _fix_case(form, 1, 3000, 4000, 400)
+    else:
+        nv, e = (3000, 4000) if t_n == 3 else (64, 160)
+        depths = (0, 40, 400) if t_n == 3 else [i % 60 for i in range(t_n)]
+        args = _fix_stack([_fix_case(form, 100 + i, nv, e, d)
+                           for i, d in enumerate(depths)])
+    vid = torch.arange(args[-1][0].shape[-1] if form == "trim"
+                       else args[-1].shape[-1], dtype=torch.int32)
+    card = [_to(x, cuda) for x in args]
+    kw = dict(shortcut=shortcut, vid=vid.to(cuda))
+    before = (fops.frontier_min.fixpoint_launches, SYNCS.count)
+    got = fops.frontier_fixpoint(form, *card, cap, **kw)
+    assert (fops.frontier_min.fixpoint_launches, SYNCS.count) == (
+        before[0] + 1, before[1])
+    loop = treach.round_loop(form, *card, cap, **kw)
+    plain = fref.frontier_fixpoint(form, *args, cap, shortcut=shortcut,
+                                   vid=vid)
+    assert got[1].shape == (() if t_n is None else (t_n,))
+    for want in (loop, plain):
+        assert _same(got[0], want[0]) and _same(got[1], want[1])
+    if t_n == 3:  # each lane == its own solo launch
+        for t in range(t_n):
+            lane = [None if x is None else
+                    (tuple(y[t] for y in x) if isinstance(x, tuple)
+                     else x[t]) for x in card]
+            solo = fops.frontier_fixpoint(form, *lane, cap, **kw)
+            assert int(solo[1]) == int(got[1][t])
+            assert _same(solo[0], tuple(y[t] for y in got[0])
+                         if form == "trim" else got[0][t])
+
+
+def test_fixpoints_read_nothing_and_replay_in_a_graph(cuda):
+    """On the card the sweeps and trim make no host read and one launch
+    each; their rounds add up on the device counter; a captured launch
+    replays, on inputs rewritten in place, as an eager launch computes."""
+    from repro_torch import kernels
+    from repro_torch.core import scc as tscc
+    src, dst, live, mask, seeds = (
+        _to(x, cuda) for x in _fix_case("reach", 3, 3000, 4000, 300))
+    vid = torch.arange(3000, dtype=torch.int32, device=cuda)
+    big = torch.full((3000,), 2 ** 31 - 1, dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    before = SYNCS.count
+    _, n_fw = treach.forward_reach(src, dst, live, seeds, mask, 5000)
+    _, n_lab = treach.propagate_min_labels(src, dst, live, vid, mask, 5000,
+                                           shortcut=True)
+    tscc.trim(src, dst, live, mask, vid, big, 5000)
+    assert SYNCS.count == before
+    assert fops.frontier_min.fixpoint_launches == 3
+    assert fops.frontier_min.launches == 3
+    rounds = fops.fixpoint_rounds()
+    assert rounds["reach"] == int(n_fw) > 1
+    assert rounds["label"] == int(n_lab) and rounds["trim"] > 0
+
+    static = seeds.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        treach.forward_reach(src, dst, live, static, mask, 5000)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, n = treach.forward_reach(src, dst, live, static, mask, 5000)
+    for seed_set in (seeds, torch.roll(seeds, 1500)):
+        static.copy_(seed_set)
+        graph.replay()
+        want, want_n = treach.forward_reach(src, dst, live, seed_set, mask,
+                                            5000)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(n, want_n)
+
+
+def test_fixpoint_launch_failure_raises(cuda):
+    """A launch the kernel refuses (more lanes than its shared memory
+    holds) raises; nothing falls back."""
+    t_n = 40000
+    src = torch.zeros((t_n, 1), dtype=torch.int32, device=cuda)
+    mask = torch.ones((t_n, 1), dtype=torch.bool, device=cuda)
+    with pytest.raises(RuntimeError, match="frontier_fixpoint"):
+        fops.frontier_fixpoint("reach", src, src, mask, mask, mask, 3)
+
+
+def test_fixpoint_capture_before_counter_raises(cuda, monkeypatch):
+    """A card's first fixpoint launch makes its round counter, so it may
+    not be captured: captured, it raises instead of counting nothing."""
+    src, dst, live, mask, seeds = (
+        _to(x, cuda) for x in _fix_case("reach", 3, 300, 400, 30))
+    monkeypatch.setattr(fops, "_rounds_run", {})
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="outside a CUDA graph capture"):
+        with torch.cuda.graph(graph):
+            treach.forward_reach(src, dst, live, seeds, mask, 50)
+    _, n = treach.forward_reach(src, dst, live, seeds, mask, 50)
+    assert fops.fixpoint_rounds()["reach"] == int(n)
+
+
 def test_probe_kernel(cuda):
     rng = np.random.default_rng(0)
     cap, b = 1024, 500

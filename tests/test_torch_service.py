@@ -247,8 +247,9 @@ def test_port_imports_nothing_of_jax():
         "community_detection_torch.py", "dynamic_scc_serving_torch.py",
         "quickstart_torch.py", "train_lm_torch.py"]
     files += examples
-    files += [ROOT / "scripts" / "profile_lm_torch.py",
-              ROOT / "scripts" / "profile_train_torch.py"]
+    files += [ROOT / "scripts" / name for name in (
+        "device_profile.py", "profile_lm_torch.py", "profile_train_torch.py",
+        "profile_smscc_torch.py")]
     assert len(files) > 20
     port = ROOT / "src" / "repro_torch"
     for rel in ("ckpt/checkpoint.py", "ckpt/oplog.py", "ckpt/durable.py",
