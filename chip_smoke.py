@@ -38,7 +38,11 @@ Phases, each printing one line or more:
    fixpoint held exactly (state and rounds) to the per-round loop on the
    card, the plain version on the card and on CPU copies, with no host
    read, timed from a replayed CUDA graph beside the per-round loop and
-   the plain version;
+   the plain version; and the scc form (``scc_rows``: the whole static
+   SCC, outer loop included, in one launch; min labels and priorities)
+   on the same graphs, held exactly (labels, outer rounds, rounds by
+   form) to its plain version on the card and to one launch a sweep with
+   a host read an outer round (the parent's path, ``loop_ms``);
    the edge table's write path at update_1m's table (2^23 slots, 2^21
    edges, a quarter removed): the boot insert, an 8192-lane insert with
    duplicates and an enable mask, an 8192-lane remove, compact, rehash to
@@ -55,8 +59,18 @@ Phases, each printing one line or more:
    frontier_min launch a fixpoint launch; the rounds they ran, by form,
    read once from the card's counter afterwards); the maintained labels
    must equal a fresh static recompute of the final graph;
+   every step on the card is one replay of the step's CUDA graph, so
+   phases 3 and 4 must make 0 host syncs a step, and update_1m's
+   fixpoint rounds must stay 99.90625 (frontier) and 8.0625 (trim) a step;
 4. dense tier: the same path, smaller, with dense_capacity=512, read the
    same way (reach_blockmm must launch);
+4b. step graph (``step_graph_checks``), at update_1m's shape and at the
+   dense tier's: the step's graph captured anew under sync debug "error",
+   2 super-chunks of 4 buckets of the paper's mix through it equal to
+   the eager per-decision step on the card (and, at the dense tier, the
+   CPU's), state, ok, overflow and RepairStats, with no host read; one
+   capture per (cfg, bucket); a state held as a reader holds a snapshot
+   bit-identical after 4 more super-chunks;
 5. card vs CPU: one seeded stream at 2^14 vertices and a 2^16-slot table
    through the port on the card and on the CPU (plain versions): per-op
    results, labels and edge sets must be identical;
@@ -187,11 +201,12 @@ Phases, each printing one line or more:
    dry-run cell (smscc:update_1m on 16x16) in a child process with its
    own fake process group of 256 ranks, its record printed;
 21. the kernels line (JSON; frontier_min's entry is the boolean fixpoint
-   launch at update_1m, with every fixpoint row, the main path's fixpoint
-   launches and rounds under ``fixpoint`` and the round kernel alone under
-   ``round``; frontier_min and hash_probe also carry their
-   tenant-row form under ``lanes``; flash and the bag their launches on
-   each path under ``launches_by_path``, flash its MoE-shape rows under
+   launch at update_1m, with every fixpoint row (the scc form's among
+   them), the main path's fixpoint launches and rounds under ``fixpoint``
+   and the round kernel alone under ``round``; frontier_min and
+   hash_probe also carry their tenant-row form under ``lanes``; flash
+   and the bag their launches on each path under ``launches_by_path``,
+   flash its MoE-shape rows under
    ``moe_shapes``, the bag its training-shape row, forward and backward,
    under ``train_shape``), the card line, and the device line last.
 
@@ -727,9 +742,188 @@ def fixpoint_checks(torch, dev, g, nv=2 ** 20, cap=2 ** 23, lanes=256,
                 plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by)))
             del got, want, ref_card, runs
+        rows += scc_rows(torch, dev, src, dst, live, allowed, where, reps)
         out[where] = rows
         torch.cuda.empty_cache()
     return out
+
+
+def scc_rows(torch, dev, src, dst, live, active, where, reps) -> list:
+    """The scc form (the whole static SCC of ``active``, its outer loop
+    included, in one launch) at the config's caps, min labels and
+    priorities: held exactly (labels, each lane's outer rounds, the rounds
+    by form on the card's counter) to its plain version on the card
+    (``ref.scc_loop`` over the plain fixpoints; the CPU tests hold it to
+    JAX) and to the parent's path (``scc_loop`` over one fixpoint launch a
+    sweep and one host read an outer round: ``loop_ms``); no host read.
+    Bound: the rounds its sweeps ran times one round's bytes, as
+    ``fixpoint_checks`` reckons them."""
+    from repro_torch.configs import smscc
+    from repro_torch.core import reach
+    from repro_torch.core.sync import SYNCS
+    from repro_torch.kernels.frontier_expand import ops as fops
+    from repro_torch.kernels.frontier_expand import ref as fref
+
+    cfg = smscc.config()
+    max_outer, max_inner = cfg.max_outer, cfg.max_inner
+    n = active.shape[-1]
+    t_n = src.numel() // src.shape[-1]
+    rows = []
+    for shortcut in (False, True):
+        def kern(sc=shortcut):
+            return fops.frontier_fixpoint("scc", src, dst, live, active, None,
+                                          max_inner, shortcut=sc,
+                                          max_outer=max_outer)
+
+        def loop(sc=shortcut):
+            return fref.scc_loop(src, dst, live, active, max_outer,
+                                 max_inner, shortcut=sc, fix=reach._fix,
+                                 read=SYNCS.bool)
+
+        tally = {}
+
+        def plain(sc=shortcut, x=(src, dst, live, active)):
+            return fref.scc_loop(*x, max_outer, max_inner, shortcut=sc,
+                                 tally=tally)
+
+        fops.reset_fixpoint_rounds()
+        s0 = SYNCS.count
+        got = kern()
+        check(SYNCS.count == s0, f"scc form on {where}: a host read")
+        by_form = {k: n_ for k, n_ in fops.fixpoint_rounds().items() if n_}
+        want, plain_ms = timed(torch, plain)
+        runs = {"plain": want, "loop": None}
+        runs["loop"], loop_ms = timed(torch, loop)
+        tag = "scc" + (", shortcut" if shortcut else "")
+        for name, (lab, outer) in runs.items():
+            check(torch.equal(got[0].cpu(), lab.cpu()) and
+                  torch.equal(got[1].cpu(), outer.cpu()),
+                  f"{tag} on {where} differs from the {name} version")
+        check(by_form == {k: n_ for k, n_ in tally.items() if n_},
+              f"{tag} on {where}: rounds by form {by_form} != {tally}")
+        swept = sum(tally.get(k, 0) for k in ("trim", "label", "prio"))
+        b_ms, b_by = bound_ms(swept * (9 * src.numel() + 2 * 4 * n * t_n))
+        rows.append(checked_row(dict(
+            shape=f"{tag}: E={src.shape[-1]} NV={n}"
+                  + (f" x T={t_n}" if t_n > 1 else "")
+                  + f", max_outer {max_outer}, max_iters {max_inner}",
+            form="scc", shortcut=shortcut, rounds=got[1].tolist(),
+            rounds_by_form=tally, held_to=sorted(runs),
+            max_abs_err=max_abs_err(torch, got[0], want[0]),
+            ms=graph_ms(torch, kern, reps), host_ms=cuda_ms(torch, kern, reps),
+            loop_ms=loop_ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by)))
+        del got, want, runs
+    return rows
+
+
+def step_graph_checks(torch, dev, cell, *, n_super=2, k=4, cpu=False
+                      ) -> dict:
+    """The update step as one replay of its captured CUDA graph
+    (``dynamic.apply_batch_scan`` on the card, captured here anew under
+    ``torch.cuda.set_sync_debug_mode("error")``, so any read back inside
+    it raises) against the eager per-decision step on the card
+    (``apply_batch_stats_eager``: the gate and the region sizes read back)
+    and, with ``cpu``, the CPU's step: state, ok, overflow and RepairStats
+    exactly, over ``n_super`` super-chunks of ``k`` buckets of the cell's
+    own batches (``launch.workload.op_stream``, the paper's mix) from its
+    booted graph; no SYNCS tick in the graph's steps.  Then a state held
+    as a reader holds a snapshot must be bit-identical after 4 more
+    super-chunks through the same graph.  Times: a super-chunk through the
+    graph and through the eager steps (CUDA events, one call each)."""
+    import numpy as np
+
+    from repro_torch.configs import smscc
+    from repro_torch.core import dynamic, step_graph
+    from repro_torch.core.sync import SYNCS
+    from repro_torch.launch import workload
+    from repro_torch.tree import tree_leaves
+
+    c = SERVE_CELLS[cell]
+    cfg = smscc.config(n_vertices=c["nv"], edge_capacity=c["cap"],
+                       dense_capacity=c.get("dense_capacity", 0))
+    b = c["bucket"]
+    boot, _ = boot_state(torch, dev, cfg, c["preload_deg"])
+
+    def chunk(i):
+        parts = [workload.op_stream(cfg.n_vertices, b, step=k * i + j,
+                                    add_frac=0.7, seed=SEED + 7)
+                 for j in range(k)]
+        return dynamic.OpBatch(*(torch.stack(x) for x in zip(*parts)))
+
+    def same(a, b_):
+        return all(torch.equal(x.cpu(), y.cpu())
+                   for x, y in zip(tree_leaves(a), tree_leaves(b_)))
+
+    step_graph.clear()
+    before = step_graph.stats()
+    step_graph.SYNC_DEBUG = True
+    rep = {"cell": cell, "bucket": b, "super_chunks": n_super, "k": k,
+           "tiers": {}, "graph_ms": [], "eager_ms": []}
+    st = {"graph": boot, "eager": boot}
+    if cpu:
+        st["cpu"] = boot_state(torch, torch.device("cpu"), cfg,
+                               c["preload_deg"])[0]
+    syncs = 0
+    try:
+        for i in range(n_super):
+            ops = chunk(i)
+            s0 = SYNCS.count
+            g, g_ms = timed(torch, lambda: dynamic.apply_batch_scan(
+                st["graph"], ops, cfg))
+            syncs += SYNCS.count - s0
+            rep["graph_ms"].append(g_ms)
+
+            def eager(d, state):
+                outs = []
+                for j in range(k):
+                    state, *o = dynamic.apply_batch_stats_eager(
+                        state, dynamic.OpBatch(*(x[j] for x in ops)), cfg)
+                    outs.append(o)
+                ok, ovf, stats = zip(*outs)
+                return (state, torch.stack(ok), torch.stack(ovf),
+                        dynamic.RepairStats(*(torch.stack(x)
+                                              for x in zip(*stats))))
+            e, e_ms = timed(torch, lambda: eager(dev, st["eager"]))
+            rep["eager_ms"].append(e_ms)
+            outs = {"eager": e}
+            if cpu:
+                outs["cpu"] = dynamic.apply_batch_scan(st["cpu"], ops, cfg)
+            for name, o in outs.items():
+                check(same(g[0], o[0]) and torch.equal(g[1].cpu(), o[1].cpu())
+                      and torch.equal(g[2].cpu(), o[2].cpu()) and
+                      all(torch.equal(x.cpu(), y.cpu())
+                          for x, y in zip(g[3], o[3])),
+                      f"step graph on {cell}: super-chunk {i} differs from "
+                      f"the {name} step")
+                st[name] = o[0]
+            st["graph"] = g[0]
+            for t in g[3].tier.tolist():
+                name = dynamic.TIER_NAMES[t]
+                rep["tiers"][name] = rep["tiers"].get(name, 0) + 1
+        check(syncs == 0, f"step graph on {cell}: {syncs} host reads")
+        held = st["graph"]
+        copy = [x.cpu().clone() for x in tree_leaves(held)]
+        cur = held
+        for i in range(n_super, n_super + 4):
+            cur = dynamic.apply_batch_scan(cur, chunk(i), cfg)[0]
+        sync(torch, dev)
+        check(all(torch.equal(a.cpu(), b_) for a, b_ in
+                  zip(tree_leaves(held), copy)),
+              f"step graph on {cell}: a held snapshot was rewritten")
+    finally:
+        step_graph.SYNC_DEBUG = False
+    after = step_graph.stats()
+    rep.update(host_syncs=syncs, snapshot_kept=True,
+               captures=after["step_graph_captures"]
+               - before["step_graph_captures"],
+               capture_s=after["capture_s"] - before["capture_s"],
+               held_to=sorted(outs), tiers_by_step=rep.pop("tiers"))
+    check(rep["captures"] == 1, f"step graph on {cell}: {rep['captures']} "
+          "captures for one (cfg, bucket)")
+    del st, held, cur
+    step_graph.clear()
+    return rep
 
 
 def unfused_messages(torch, fops, kind, src, dst, live, allowed, st):
@@ -1387,7 +1581,7 @@ def serve_path(torch, dev, *, nv, cap, bucket, chunk, n_chunks,
     card-vs-CPU comparison."""
     from repro_torch import kernels
     from repro_torch.configs import smscc
-    from repro_torch.core import dynamic
+    from repro_torch.core import dynamic, step_graph
     from repro_torch.core.service import SCCService
     from repro_torch.kernels.frontier_expand import ops as fops
     from repro_torch.kernels.hash_probe import ops as hops
@@ -1409,10 +1603,15 @@ def serve_path(torch, dev, *, nv, cap, bucket, chunk, n_chunks,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
+    graphs = step_graph.stats()
     run = stream.run_stream(svc, n_chunks * chunk, add_frac=0.7,
                             query_frac=1.0, chunk=chunk, n_queries=n_same,
                             seed=SEED, budget_s=budget_s, record=record)
     rep["launches"] = kernels.launch_counts()
+    # the step's CUDA graphs captured in the run (one per cfg and bucket,
+    # the reference's compiles) and the seconds they took
+    rep["step_graph"] = {k: step_graph.stats()[k] - graphs[k]
+                         for k in ("step_graph_captures", "capture_s")}
     rep["hash_probe_launches"] = {e: getattr(hops, e).launches
                                   for e in ("probe", "insert", "remove")}
     rep["fixpoint_launches"] = fops.frontier_min.fixpoint_launches
@@ -3278,6 +3477,8 @@ def tenant_path(torch, dev, *, nv=4096, cap_a=2 ** 14, n_a=256,
                          state=gs.lane(boots[tid[0]], int(tid[1:])))
         for w in range(waves):
             ok, gen = svc._apply_ops(*ops[tid][w])
+            check(not isinstance(acks[w][tid], Exception),
+                  f"{tid} wave {w}: the engine failed: {acks[w][tid]!r}")
             got_ok, got_gen = acks[w][tid]
             check(np.array_equal(got_ok, ok) and got_gen == gen,
                   f"{tid} wave {w}: acks or gen differ from its oracle")
@@ -3368,8 +3569,10 @@ def sass_counts(build, name, ops) -> dict:
 
 
 def sync(torch, dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    """Wait for the card; never while another thread captures a step
+    graph (the card refuses a device-wide wait during any capture)."""
+    from repro_torch.core import step_graph
+    step_graph.synchronize(dev)
 
 
 def main() -> int:
@@ -3443,6 +3646,22 @@ def main() -> int:
     check(dense_rep["launches"]["bool_matmul"] > 0,
           "bool_matmul never launched")
     check(dense_rep["repair_steps"]["dense"] > 0, "dense tier never ran")
+    for tag, r in (("update_1m", main_rep), ("dense tier", dense_rep)):
+        check(r["update_host_syncs_per_step"] == 0,
+              f"{tag}: {r['update_host_syncs_per_step']} host syncs a step")
+    if main_rep["chunks"] == main_rep["chunks_asked"]:
+        # the reference's rounds on this seeded stream (the round loop's
+        # launches counted them the same)
+        check((main_rep["frontier_rounds_per_step"],
+               main_rep["trim_rounds_per_step"]) == (99.90625, 8.0625),
+              "update_1m's fixpoint rounds a step moved")
+
+    t0 = time.perf_counter()
+    sg = {cell: step_graph_checks(torch, dev, cell,
+                                  cpu=cell == "dense_tier")
+          for cell in ("update_1m", "dense_tier")}
+    emit("step_graph", seconds=time.perf_counter() - t0, **sg)
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     runs = {}
@@ -3487,6 +3706,8 @@ def main() -> int:
     for k in ("frontier_min", "hash_probe"):
         check(all(base_rep[r]["launches"][k] > 0 for r in BASELINE_RUNS),
               f"baselines: {k} did not launch in every run")
+    from repro_torch.core import step_graph
+    step_graph.clear()  # the step graphs' pools, before the LM phases
     torch.cuda.empty_cache()
 
     bag_rep = bag_path(torch, dev)
@@ -3572,6 +3793,7 @@ def main() -> int:
     emit("bundles", seconds=time.perf_counter() - t0,
          mesh=bundles["mesh"], cells=sorted(bundles["cells"]))
     torch.distributed.destroy_process_group()
+    step_graph.clear()
     torch.cuda.empty_cache()
     emit("blockmm_steps", **blockmm_steps_check(torch, dev))
     t0 = time.perf_counter()

@@ -8,6 +8,7 @@ first family whose substring is in a kernel's lower-cased name wins,
 from __future__ import annotations
 
 import collections
+import re
 import time
 
 
@@ -19,12 +20,18 @@ def family(name: str, families) -> str:
     return "other_elementwise"
 
 
+# the runtime calls by which the host puts work on the card: kernel
+# launches, graph replays, copies and fills
+HOST_ISSUE = re.compile(r"^cu(da)?(Launch|GraphLaunch|Memcpy|Memset)")
+
+
 def profiled(torch, fn, families, top: int = 10) -> dict:
     """Run ``fn`` once under the profiler: its wall seconds (host clock to
     a synchronise), the device's busy seconds (the sum of the kernels'
     device times; one stream, so they do not overlap) and idle share, the
-    kernels launched, the device seconds of each family and the ``top``
-    costliest kernels."""
+    kernels launched, the host's calls that issue work (``HOST_ISSUE``,
+    by name: a graph replay is one), the device seconds of each family and
+    the ``top`` costliest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -36,6 +43,10 @@ def profiled(torch, fn, families, top: int = 10) -> dict:
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    issued = collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CPU
+        and HOST_ISSUE.match(e.name))
     by_fam = collections.Counter()
     by_name = collections.Counter()
     for e in kernels:
@@ -46,6 +57,7 @@ def profiled(torch, fn, families, top: int = 10) -> dict:
     return {"wall_s": wall, "device_busy_s": busy,
             "device_idle_share": 1.0 - busy / wall if wall else None,
             "kernels": len(kernels),
+            "host_issue_calls": dict(issued.most_common()),
             "device_s_by_family": {k: v / 1e6
                                    for k, v in by_fam.most_common()},
             "top_kernels_s": [[n[:120], v / 1e6]

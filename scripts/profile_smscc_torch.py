@@ -22,10 +22,13 @@ Each of the three runs reports update
 ops/s, host syncs and launches a step, and the fixpoint rounds where the
 tree counts them.  The profiled run boots the same graph again and runs
 the cell's update chunks alone (no queries): wall and device-busy seconds
-a step, the idle share, the device seconds of each kernel family (the
-fixpoint launch, the round gather, the edge table's kernels, the rest)
-and the costliest kernels.  Prints one JSON object, then the card's name
-and power limit.  Needs a CUDA card: without one it exits 1.
+a step, the idle share, the host's calls that put work on the card a
+step (kernel launches, graph replays, copies, fills; by name), the device
+seconds of each kernel family (the fixpoint launch, the round gather, the
+edge table's kernels, the rest) and the costliest kernels.  A last run
+of the whole cell goes under cProfile: the host seconds a chunk of the
+functions that take the most own time.  Prints one JSON object, then the
+card's name and power limit.  Needs a CUDA card: without one it exits 1.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ from device_profile import profiled
 HERE = Path(__file__).resolve().parents[1]
 REPEATS = 3
 FAMILIES = (
-    ("fixpoint", ("fixpoint_rounds",)),
+    ("fixpoint", ("fixpoint_rounds", "scc_rounds")),
     ("round_gather", ("gather_rows",)),
     ("edge_table", ("insert_rounds", "remove_first", "probe_walk")),
     ("index_gather_scatter", ("index", "scatter", "gather")),
@@ -52,7 +55,8 @@ KEEP = ("ops_per_s", "queries_per_s", "steps", "update_s",
         "update_host_syncs_per_step", "update_launches_per_step",
         "query_syncs", "query_launches", "fixpoint_launches",
         "fixpoint_rounds", "frontier_rounds_per_step",
-        "trim_rounds_per_step", "query_rounds", "repair_steps")
+        "trim_rounds_per_step", "query_rounds", "repair_steps",
+        "step_graph", "peak_mem_bytes")
 
 
 def chip_smoke_of(root: Path, name: str):
@@ -64,6 +68,20 @@ def chip_smoke_of(root: Path, name: str):
     mod = sys.modules[name] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def host_profiled(fn, top: int = 12) -> dict:
+    """One more run of ``fn`` under cProfile: the host seconds of the
+    ``top`` functions by own time ("file:line function")."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.runcall(fn)
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return {f"{Path(f).name}:{line} {name}": tt
+            for (f, line, name), (_, _, tt, _, _) in rows}
 
 
 def main() -> int:
@@ -108,6 +126,7 @@ def main() -> int:
             chunk=cell["chunk"], seed=cs.SEED))
 
     prof = profiled(torch, updates, FAMILIES, top=8)
+    host = host_profiled(lambda: cs.serve_path(torch, dev, **cell))
     steps = sum(run[f"repair_{t}_steps"] for t in
                 ("dense", "compact", "full", "skipped"))
     out["profiled"] = {
@@ -115,10 +134,15 @@ def main() -> int:
         "device_busy_s_per_step": prof["device_busy_s"] / steps,
         "device_idle_share": prof["device_idle_share"],
         "kernels_per_step": prof["kernels"] / steps,
+        "host_issue_calls_per_step": sum(
+            prof["host_issue_calls"].values()) / steps,
+        "host_issue_calls": prof["host_issue_calls"],
         "host_syncs_per_step": run["update_syncs"] / steps,
         "device_s_per_step_by_family": {
             k: v / steps for k, v in prof["device_s_by_family"].items()},
         "top_kernels_s": prof["top_kernels_s"]}
+    out["host_s_per_chunk_by_function"] = {
+        k: v / cell["n_chunks"] for k, v in host.items()}
     print(json.dumps(out), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

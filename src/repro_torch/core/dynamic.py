@@ -7,13 +7,21 @@ by lane index) and repairs labels on the affected region only:
 BW(new tails)`` of straddling inserts, through the smallest repair tier
 the region fits (dense, compact, full).
 
-Where JAX uses ``lax.cond`` / ``lax.switch`` / ``lax.scan``, the port uses
-Python control flow: the repair gate and the tier choice each read one
-value back from the device (counted by :data:`repro_torch.core.sync.SYNCS`),
-and the scan entry is a loop over steps.  The sweeps' ``lax.while_loop``
-fixpoints stay on the device: on the card each is one kernel launch
-(``core/reach.py``), so a step's remaining reads are the gate, the region
-sizes and the static SCC's outer loop.
+On the card the step runs as the JAX package's compiled step does: one
+replay of a CUDA graph captured once per (cfg, bucket, card)
+(``core/step_graph.py``), the repair gate's ``lax.cond`` and the tier's
+nested ``lax.cond`` / ``lax.switch`` as conditional nodes decided on the
+card (:func:`tier_code`), every fixpoint and the static SCC's outer loop
+one kernel launch each, and nothing read back inside a step.  The scan
+entry replays the graph K times and returns device tensors; the caller
+reads a super-chunk's ok, overflow and :class:`RepairStats` back once
+(:func:`read_back`).
+
+On CPU tensors (the plain version) and DTensors the same step runs
+eagerly, each decision read back to the host (counted by
+:data:`repro_torch.core.sync.SYNCS`): the gate, then the region sizes for
+the tier choice (:func:`_tier_of`).  :func:`apply_batch_stats_eager` runs
+that per-decision step on the card too, as the graph is held to it.
 
 ``apply_batch_stats_lanes`` / ``apply_batch_scan_lanes`` are the step over
 a leading tenant axis (the JAX package's ``jax.vmap`` of the scan, as its
@@ -33,7 +41,7 @@ import torch
 
 from repro_torch.core import edge_table as et
 from repro_torch.core import graph_state as gs
-from repro_torch.core import reach, scc
+from repro_torch.core import reach, scc, step_graph
 from repro_torch.core.sync import SYNCS
 from repro_torch.kernels.reach_blockmm import ops as reach_blockmm
 
@@ -49,6 +57,7 @@ TIER_FULL = gs.TIER_FULL
 TIER_SKIP = gs.TIER_SKIP
 TIER_NAMES = gs.TIER_NAMES
 RepairStats = gs.RepairStats
+INT32_MAX = gs.INT32_MAX
 
 
 class OpBatch(NamedTuple):
@@ -67,9 +76,11 @@ def make_ops(kind, u, v) -> OpBatch:
 
 def _junk_set(n: int, idx, mask, device) -> torch.Tensor:
     """bool[n]: True at ``idx`` where ``mask``; other lanes hit slot n,
-    which is sliced off (JAX's ``mode="drop"`` scatter)."""
+    which is sliced off (JAX's ``mode="drop"`` scatter).  The scalar is a
+    kernel argument (``index_fill_``), never a host copy, so a graph can
+    capture it."""
     out = torch.zeros(n + 1, dtype=torch.bool, device=device)
-    out[torch.where(mask, idx, n).long()] = True
+    out.index_fill_(0, torch.where(mask, idx, n).long(), True)
     return out[:n]
 
 
@@ -83,31 +94,66 @@ def _first_claim(cand, target, nv, b):
     return cand & (claims[slot] == idx)
 
 
+def _edge_buckets(cfg: gs.GraphConfig) -> tuple:
+    return tuple(x for x in cfg.region_edge_buckets if x < cfg.edge_capacity)
+
+
+def _compact_on(cfg: gs.GraphConfig) -> bool:
+    return 0 < cfg.region_vertex_capacity < cfg.n_vertices and \
+        bool(_edge_buckets(cfg))
+
+
 def _tier_of(cfg: gs.GraphConfig, region_v: int, region_e: int):
     """(tier, compact edge bucket) of a region of ``region_v`` vertices
     and ``region_e`` live edges: the smallest tier it fits, as the JAX
-    step's nested ``lax.cond`` / ``lax.switch`` choose."""
-    nv = cfg.n_vertices
-    e_buckets = tuple(x for x in cfg.region_edge_buckets
-                      if x < cfg.edge_capacity)
+    step's nested ``lax.cond`` / ``lax.switch`` choose (host ints)."""
+    e_buckets = _edge_buckets(cfg)
     vcap = cfg.region_vertex_capacity
     if cfg.dense_capacity > 0 and region_v <= cfg.dense_capacity:
         return TIER_DENSE, None
-    if (0 < vcap < nv and e_buckets and region_v <= vcap
+    if (_compact_on(cfg) and region_v <= vcap
             and region_e <= e_buckets[-1]):
         k = min(sum(region_e > x for x in e_buckets), len(e_buckets) - 1)
         return TIER_COMPACT, e_buckets[k]
     return TIER_FULL, None
 
 
-def apply_batch_stats(state: gs.GraphState, ops: OpBatch,
-                      cfg: gs.GraphConfig):
-    """One batch-atomic SMSCC step with its telemetry (the JAX package's
-    ``apply_batch_async``).  Returns ``(new_state, ok: bool[B],
-    ovf_delta: int32[], RepairStats)``."""
+def branches(cfg: gs.GraphConfig) -> tuple:
+    """The repair branches of ``cfg`` as (tier, compact edge bucket), in
+    the order :func:`tier_code` numbers them: dense (where on), compact
+    one per edge bucket (where on), full."""
+    return ((((TIER_DENSE, None),) if cfg.dense_capacity > 0 else ())
+            + (tuple((TIER_COMPACT, b) for b in _edge_buckets(cfg))
+               if _compact_on(cfg) else ())
+            + ((TIER_FULL, None),))
+
+
+def tier_code(cfg: gs.GraphConfig, region_v: torch.Tensor,
+              region_e: torch.Tensor) -> torch.Tensor:
+    """The index into :func:`branches` of the tier :func:`_tier_of`
+    picks, computed on the region sizes' device (int32 tensors, any
+    shape): the JAX step's ``bucket_idx`` / ``fits_compact`` and the dense
+    test, with no read back."""
+    br = branches(cfg)
+    code = torch.full_like(region_v, len(br) - 1)
+    if _compact_on(cfg):
+        e_buckets = _edge_buckets(cfg)
+        first = 1 if cfg.dense_capacity > 0 else 0
+        idx = sum((region_e > x).int() for x in e_buckets).clamp(
+            max=len(e_buckets) - 1)
+        fits = (region_v <= cfg.region_vertex_capacity) & \
+            (region_e <= e_buckets[-1])
+        code = torch.where(fits, first + idx, code)
+    if cfg.dense_capacity > 0:
+        code = torch.where(region_v <= cfg.dense_capacity, 0, code)
+    return code.int()
+
+
+def _phases_1_4(state: gs.GraphState, kind, u, v, cfg: gs.GraphConfig):
+    """The structural phases: (v_alive, ccid, edges, ok, ovf, m_del,
+    straddle)."""
     nv = cfg.n_vertices
     dev = state.device
-    kind, u, v = (t.to(dev) for t in ops)
     b = kind.shape[0]
     vid = torch.arange(nv, dtype=torch.int32, device=dev)
     uc, vc = u.clamp(0, nv - 1), v.clamp(0, nv - 1)
@@ -127,7 +173,8 @@ def apply_batch_stats(state: gs.GraphState, ops: OpBatch,
     killed = _junk_set(nv, u, win_remv, dev)
     # deletion-affected classes: the old class of every killed vertex
     affected_rep = torch.zeros(nv + 1, dtype=torch.bool, device=dev)
-    affected_rep[torch.where(killed, ccid.clamp(max=nv), nv).long()] = True
+    affected_rep.index_fill_(
+        0, torch.where(killed, ccid.clamp(max=nv), nv).long(), True)
     v_alive = v_alive & ~killed
     edges, _ = et.remove_incident(edges, killed)
     ccid = torch.where(killed, nv, ccid)
@@ -139,7 +186,8 @@ def apply_batch_stats(state: gs.GraphState, ops: OpBatch,
                                impl=cfg.sparse_impl)
     ok = ok | removed
     hit = removed & (ccid[uc] == ccid[vc])
-    affected_rep[torch.where(hit, ccid[uc].clamp(max=nv), nv).long()] = True
+    affected_rep.index_fill_(
+        0, torch.where(hit, ccid[uc].clamp(max=nv), nv).long(), True)
 
     # ---- Phase 3: AddVertex -----------------------------------------------
     cand = (kind == ADD_VERTEX) & in_range & ~v_alive[uc]
@@ -156,62 +204,146 @@ def apply_batch_stats(state: gs.GraphState, ops: OpBatch,
     ok = ok | inserted
     ovf = dropped.sum().int()
 
-    # ---- Phase 5: localized repair ----------------------------------------
-    src, dst, live = edges.src, edges.dst, edges.state == et.LIVE
     m_del = v_alive & affected_rep[ccid.clamp(max=nv)]
     straddle = inserted & (ccid[uc] != ccid[vc])
+    return v_alive, ccid, edges, ok, ovf, m_del, straddle
 
-    def run_repair():
-        seed_f = _junk_set(nv, v, straddle, dev)
-        seed_b = _junk_set(nv, u, straddle, dev)
-        if cfg.fuse_fwbw:
-            fw, bw, _ = reach.fused_fw_bw_reach(
-                src, dst, live, seed_f, seed_b, v_alive, cfg.max_inner,
-                spec=cfg.label_spec, impl=cfg.sparse_impl)
+
+def _region(cfg, src, dst, live, v_alive, m_del, straddle, u, v):
+    """The affected region and its sizes (int32 scalars on the card)."""
+    nv = cfg.n_vertices
+    dev = v_alive.device
+    seed_f = _junk_set(nv, v, straddle, dev)
+    seed_b = _junk_set(nv, u, straddle, dev)
+    if cfg.fuse_fwbw:
+        fw, bw, _ = reach.fused_fw_bw_reach(
+            src, dst, live, seed_f, seed_b, v_alive, cfg.max_inner,
+            spec=cfg.label_spec, impl=cfg.sparse_impl)
+    else:
+        fw, _ = reach.forward_reach(src, dst, live, seed_f, v_alive,
+                                    cfg.max_inner, spec=cfg.label_spec,
+                                    impl=cfg.sparse_impl)
+        bw, _ = reach.backward_reach(src, dst, live, seed_b, v_alive,
+                                     cfg.max_inner, spec=cfg.label_spec,
+                                     impl=cfg.sparse_impl)
+    region = (m_del | (fw & bw)) & v_alive
+    return (region, region.sum().int(),
+            (live & region[src] & region[dst]).sum().int())
+
+
+def _tier_labels(cfg, tier, bucket, src, dst, live, region):
+    """The region's SCC labels through one repair tier."""
+    if tier == TIER_DENSE:
+        def matmul(a, bm):
+            return reach_blockmm.bool_matmul(a, bm,
+                                             impl=cfg.dense_matmul_impl)
+        return scc.scc_dense_region(src, dst, live, region,
+                                    cfg.dense_capacity, matmul=matmul)[0]
+    if tier == TIER_COMPACT:
+        return scc.scc_compact_region(
+            src, dst, live, region, cfg.region_vertex_capacity, bucket,
+            max_outer=cfg.max_outer, max_inner=cfg.max_inner,
+            shortcut=cfg.shortcut, impl=cfg.sparse_impl)[0]
+    return scc.scc_static(src, dst, live, region, max_outer=cfg.max_outer,
+                          max_inner=cfg.max_inner, spec=cfg.label_spec,
+                          shortcut=cfg.shortcut, impl=cfg.sparse_impl)
+
+
+def _skipped(like: torch.Tensor) -> torch.Tensor:
+    """A skipped step's stats, int32[3] on ``like``'s device."""
+    stats = torch.zeros(3, dtype=torch.int32, device=like.device)
+    stats[0].fill_(TIER_SKIP)
+    return stats
+
+
+def _repair(cfg, src, dst, live, v_alive, ccid, m_del, straddle, u, v,
+            graph):
+    """Phase 5: (ccid, stats int32[3]: tier, region_v, region_e).  With
+    ``graph`` (a step-graph capture) every branch is an IF node decided on
+    the card; without, each decision is read back to the host."""
+    def repair():
+        region, rv, re = _region(cfg, src, dst, live, v_alive, m_del,
+                                 straddle, u, v)
+        if graph is None:
+            tier, bucket = _tier_of(cfg, *SYNCS.ints(rv, re))
+            lab = _tier_labels(cfg, tier, bucket, src, dst, live, region)
+            tier_t = torch.full((), tier, dtype=torch.int32,
+                                device=ccid.device)
         else:
-            fw, _ = reach.forward_reach(src, dst, live, seed_f, v_alive,
-                                        cfg.max_inner, spec=cfg.label_spec,
-                                        impl=cfg.sparse_impl)
-            bw, _ = reach.backward_reach(src, dst, live, seed_b, v_alive,
-                                         cfg.max_inner, spec=cfg.label_spec,
-                                         impl=cfg.sparse_impl)
-        region = (m_del | (fw & bw)) & v_alive
-        region_v, region_e = SYNCS.ints(
-            region.sum(), (live & region[src] & region[dst]).sum())
+            code = tier_code(cfg, rv, re)
+            # one label buffer every branch writes into (the merge of the
+            # JAX branches' outputs)
+            lab = torch.full_like(ccid, INT32_MAX)
+            tier_t = torch.zeros((), dtype=torch.int32, device=ccid.device)
+            for i, (tier, bucket) in enumerate(branches(cfg)):
+                with graph.if_node(code == i):
+                    lab.copy_(_tier_labels(cfg, tier, bucket, src, dst,
+                                           live, region))
+                    tier_t.fill_(tier)
+        return torch.where(region, lab, ccid), torch.stack([tier_t, rv, re])
 
-        tier, bucket = _tier_of(cfg, region_v, region_e)
-        if tier == TIER_DENSE:
-            def matmul(a, bm):
-                return reach_blockmm.bool_matmul(
-                    a, bm, impl=cfg.dense_matmul_impl)
-            lab, _ = scc.scc_dense_region(src, dst, live, region,
-                                          cfg.dense_capacity, matmul=matmul)
-        elif tier == TIER_COMPACT:
-            lab, _ = scc.scc_compact_region(
-                src, dst, live, region, cfg.region_vertex_capacity, bucket,
-                max_outer=cfg.max_outer, max_inner=cfg.max_inner,
-                shortcut=cfg.shortcut, impl=cfg.sparse_impl)
-        else:
-            lab = scc.scc_static(src, dst, live, region,
-                                 max_outer=cfg.max_outer,
-                                 max_inner=cfg.max_inner,
-                                 spec=cfg.label_spec,
-                                 shortcut=cfg.shortcut, impl=cfg.sparse_impl)
-        return (torch.where(region, lab, ccid),
-                RepairStats(tier, region_v, region_e))
-
+    if not cfg.repair_gate:
+        return repair()
     # repair gate: no straddling insert and no deletion-affected member
     # proves the region empty, so skipping is exact
-    if not cfg.repair_gate or SYNCS.bool(m_del.any() | straddle.any()):
-        ccid, repair = run_repair()
-    else:
-        repair = gs.repair_skipped()
+    need = m_del.any() | straddle.any()
+    if graph is None:
+        return repair() if SYNCS.bool(need) else (ccid, _skipped(ccid))
+    out_ccid, out_stats = ccid.clone(), _skipped(ccid)
+    with graph.if_node(need):
+        new_ccid, stats = repair()
+        out_ccid.copy_(new_ccid)
+        out_stats.copy_(stats)
+    return out_ccid, out_stats
 
+
+def _step(state: gs.GraphState, ops: OpBatch, cfg: gs.GraphConfig,
+          graph=None):
+    """One step: ``(new_state, ok bool[B], ovf int32[], stats int32[3])``.
+    ``graph``: the step graph being captured, else None (the decisions
+    read back)."""
+    nv = cfg.n_vertices
+    dev = state.device
+    kind, u, v = (t.to(dev) for t in ops)
+    v_alive, ccid, edges, ok, ovf, m_del, straddle = _phases_1_4(
+        state, kind, u, v, cfg)
+    src, dst, live = edges.src, edges.dst, edges.state == et.LIVE
+    ccid, stats = _repair(cfg, src, dst, live, v_alive, ccid, m_del,
+                          straddle, u, v, graph)
     ccid = torch.where(v_alive, ccid, nv)
     new_state = gs.recount_ccs(gs.GraphState(
         v_alive=v_alive, ccid=ccid, edges=edges, n_ccs=state.n_ccs,
         gen=state.gen + 1, overflow=state.overflow + ovf))
-    return new_state, ok, ovf, repair
+    return new_state, ok, ovf, stats
+
+
+def _stats(stats: torch.Tensor) -> RepairStats:
+    """RepairStats of int32 tensors from [..., 3] (tier, region_v,
+    region_e)."""
+    return RepairStats(*stats.unbind(-1))
+
+
+def apply_batch_stats(state: gs.GraphState, ops: OpBatch,
+                      cfg: gs.GraphConfig):
+    """One batch-atomic SMSCC step with its telemetry (the JAX package's
+    ``apply_batch_async``).  Returns ``(new_state, ok: bool[B],
+    ovf_delta: int32[], RepairStats of int32[] tensors)``, all on the
+    state's device; on the card one replay of the step graph, with
+    nothing read back."""
+    if step_graph.graphable(state):
+        new, ok, ovf, stats = step_graph.run(
+            state, OpBatch(*(x.unsqueeze(0) for x in ops)), cfg, _step)
+        return new, ok[0], ovf[0], _stats(stats[0])
+    return apply_batch_stats_eager(state, ops, cfg)
+
+
+def apply_batch_stats_eager(state: gs.GraphState, ops: OpBatch,
+                            cfg: gs.GraphConfig):
+    """:func:`apply_batch_stats` run op by op, the gate and the tier read
+    back to the host: the plain path of CPU tensors and DTensors, and on
+    the card the per-decision step the graph is held to."""
+    new, ok, ovf, stats = _step(state, ops, cfg)
+    return new, ok, ovf, _stats(stats)
 
 
 def apply_batch(state: gs.GraphState, ops: OpBatch, cfg: gs.GraphConfig):
@@ -224,16 +356,33 @@ def apply_batch_scan(state: gs.GraphState, ops: OpBatch,
                      cfg: gs.GraphConfig):
     """K stacked same-bucket chunks (``int32[K, B]`` leaves) through the
     step in order.  Returns ``(new_state, ok: bool[K, B], ovf_delta:
-    int32[K], RepairStats of K-tuples)``, as K sequential steps."""
+    int32[K], RepairStats of int32[K] tensors)``, as K sequential steps;
+    on the card K replays of the step graph and nothing read back."""
+    if step_graph.graphable(state):
+        new, ok, ovf, stats = step_graph.run(state, ops, cfg, _step)
+        return new, ok, ovf, _stats(stats)
     oks, ovfs, reps = [], [], []
     for k in range(ops.kind.shape[0]):
-        state, ok, ovf, rep = apply_batch_stats(
+        state, ok, ovf, rep = _step(
             state, OpBatch(ops.kind[k], ops.u[k], ops.v[k]), cfg)
         oks.append(ok)
         ovfs.append(ovf)
         reps.append(rep)
     return (state, torch.stack(oks), torch.stack(ovfs),
-            RepairStats(*(tuple(col) for col in zip(*reps))))
+            _stats(torch.stack(reps)))
+
+
+def read_back(ok: torch.Tensor, ovf: torch.Tensor, stats: RepairStats):
+    """A super-chunk's (or a step's) outputs on the host in one transfer:
+    ``(ok bool, ovf int32, stats int32[..., 3])`` numpy arrays."""
+    lead = ovf.shape
+    flat = torch.cat([ok.reshape(-1).int(), ovf.reshape(-1).int(),
+                      torch.stack(tuple(stats), -1).reshape(-1).int()])
+    host = flat.cpu().numpy()
+    n_ok, n = ok.numel(), ovf.numel()
+    return (host[:n_ok].reshape(ok.shape).astype(bool),
+            host[n_ok:n_ok + n].reshape(lead),
+            host[n_ok + n:].reshape(*lead, 3))
 
 
 def recompute(state: gs.GraphState, cfg: gs.GraphConfig) -> gs.GraphState:

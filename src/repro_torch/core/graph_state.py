@@ -28,9 +28,10 @@ TIER_NAMES = ("dense", "compact", "full", "skipped")
 
 
 class RepairStats(NamedTuple):
-    """Per-step repair telemetry.  Host ints: the tier dispatch already
-    read them to choose the tier.  The scan entry returns tuples, one
-    entry per step."""
+    """Per-step repair telemetry: int32 tensors on the state's device from
+    the single-graph step (0-d a step, [K] from the scan entry), read back
+    with the step's other outputs; host ints (numpy [T, K] from the lane
+    scan) from the lane step, whose tier dispatch reads them."""
     tier: int
     region_vertices: int
     region_edges: int

@@ -11,13 +11,18 @@ JAX drops out-of-range scatters (``mode="drop"``); torch raises on them.
 Every such scatter here aims at an explicit junk slot (size n + 1, then
 sliced off), and only the junk slot ever receives duplicate indices.
 
+On the card ``scc_static`` (the full tier, the compact tier's pass over
+its packed arrays and the recompute) is one launch of the frontier
+kernel's ``scc`` form: the JAX package's ``lax.while_loop`` outer loop
+and every trim and sweep inside it, with no host read.
+
 Tenant lanes: ``trim``, ``scc_static``, ``compact_region`` and
 ``scc_compact_region`` also take edges [T, C] with row-local ids and
 masks [T, NV] (``jax.vmap`` of the JAX functions).  Every count, cumsum,
 scatter and gather then runs along a lane's own row, never across rows,
-each fixpoint is one launch for all lanes on the card, and the outer
-loop reads the host once a round for all lanes.  The dense tier runs lane by lane (``scc_dense_region`` on one
-row at a time).
+and ``scc_static`` is one launch for all lanes on the card (on the CPU
+its outer loop reads the host once a round for all lanes).  The dense
+tier runs lane by lane (``scc_dense_region`` on one row at a time).
 """
 from __future__ import annotations
 
@@ -27,7 +32,10 @@ import torch
 
 from repro_torch.core import reach
 from repro_torch.core.sync import SYNCS
+from repro_torch.kernels.frontier_expand import ops as frontier
+from repro_torch.kernels.frontier_expand import ref as fref
 from repro_torch.kernels.reach_blockmm import ops as reach_blockmm
+from repro_torch.sharding import constrain, lead
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -49,51 +57,30 @@ def scc_static(src, dst, live, active, *, max_outer: int, max_inner: int,
     propagation fixpoint; ``spec`` optionally pins the NV-array sharding
     inside the fixpoints (GraphConfig.label_spec).
 
-    Tenant lanes ([T, C] edges, [T, NV] ``active``): one read of
-    ``unassigned.any()`` an outer round for all lanes.  A lane with nothing
+    On plain CUDA tensors the whole of it, outer loop included, is one
+    launch of the frontier kernel's ``scc`` form, with no host read.  On
+    CPU tensors (the plain version) and DTensors the outer loop is
+    ``kernels/frontier_expand/ref.scc_loop`` over ``core/reach.py``'s
+    fixpoints, reading ``unassigned.any()`` back once a round.
+
+    Tenant lanes ([T, C] edges, [T, NV] ``active``): a lane with nothing
     unassigned passes through an outer round unchanged (no vertex to
     peel, seed or label), so each lane takes exactly its solo outer
     rounds, all lanes under the same ``max_outer``."""
-    nv = active.shape[-1]
-    dev = active.device
-    lanes = active.dim() == 2
-    vid = torch.arange(nv, dtype=torch.int32, device=dev)
-    ccid = torch.full(active.shape, INT32_MAX, dtype=torch.int32,
-                      device=dev)
-    unassigned = active
-    it = 0
-    while it < max_outer and SYNCS.bool(unassigned.any()):
-        unassigned, ccid = trim(src, dst, live, unassigned, vid, ccid,
-                                max_inner)
-        if shortcut:
-            fwd, _ = reach.propagate_min_prio(src, dst, live, unassigned,
-                                              max_inner, spec=spec,
-                                              impl=impl)
-            bwd, _ = reach.propagate_min_prio(dst, src, live, unassigned,
-                                              max_inner, spec=spec,
-                                              impl=impl)
-            done = unassigned & (fwd == bwd) & (fwd < nv)
-            # canonical label = min member id of each witness group
-            # (one sentinel column per lane: groups never cross lanes)
-            grp = torch.where(done, fwd, nv).long()
-            min_id = torch.full((*active.shape[:-1], nv + 1), INT32_MAX,
-                                dtype=torch.int32, device=dev)
-            min_id.scatter_reduce_(-1, grp, torch.where(done, vid, INT32_MAX)
-                                   .expand_as(grp), reduce="amin")
-            ccid = torch.where(done, reach.take(min_id, fwd.clamp(max=nv)),
-                               ccid)
-        else:
-            init = torch.where(unassigned, vid, INT32_MAX)
-            fwd, _ = reach.propagate_min_labels(src, dst, live, init,
-                                                unassigned, max_inner,
-                                                spec=spec, impl=impl)
-            bwd, _ = reach.propagate_min_labels(dst, src, live, init,
-                                                unassigned, max_inner,
-                                                spec=spec, impl=impl)
-            done = unassigned & (fwd == bwd)
-            ccid = torch.where(done, fwd, ccid)
-        unassigned = unassigned & ~done
-        it += 1
+    if reach._on_card(active):
+        # a plain tensor under a mesh of several ranks raises, as a round
+        # would
+        constrain(active, lead(spec) if src.dim() == 2 else spec)
+        ccid, _ = frontier.frontier_fixpoint(
+            "scc", src, dst, live, active, None, max_inner,
+            shortcut=shortcut, max_outer=max_outer, impl=impl)
+        return ccid
+
+    def fix(form, *args, **kw):
+        return reach._fix(form, *args, spec=None if form == "trim" else spec,
+                          impl=impl, **kw)
+    ccid, _ = fref.scc_loop(src, dst, live, active, max_outer, max_inner,
+                            shortcut=shortcut, fix=fix, read=SYNCS.bool)
     return ccid
 
 
@@ -192,7 +179,7 @@ def gather_region(src, dst, live, region_mask, capacity: int):
     c = torch.where(e_in, pos_of[dst], capacity).long()
     adj = torch.zeros((capacity + 1, capacity + 1), dtype=torch.bool,
                       device=dev)
-    adj[r, c] = True
+    adj.view(-1).index_fill_(0, r * (capacity + 1) + c, True)
     return adj[:capacity, :capacity].contiguous(), ids, valid, fits
 
 

@@ -8,10 +8,14 @@ design).  What differs in the port:
   writes into its input -- so the committed snapshot readers hold is never
   mutated and needs no private double buffer, and an overflowing chunk
   always replays from the offending super-chunk's own input state.
-* There is no jit, hence no compile count: a super-chunk of K chunks is K
-  steps in a Python loop (``dynamic.apply_batch_scan``), and each
-  super-chunk's (ok, overflow) outputs are read back once, behind the same
-  ``inflight_window`` of dispatched super-chunks as in the JAX service.
+* There is no jit.  On the card a super-chunk of K chunks is K replays of
+  the step's CUDA graph, captured once per (cfg, bucket) as the reference
+  compiles once per (K, bucket, cfg) (``dynamic.apply_batch_scan``,
+  ``core/step_graph.py``); on the CPU it is K eager steps.  Each
+  super-chunk's ok, overflow and repair stats are read back in one
+  transfer (``dynamic.read_back``), behind the same ``inflight_window`` of
+  dispatched super-chunks as in the JAX service; the serial
+  grow-and-replay path reads once a step.
 * The service runs on ``cuda`` unless ``device`` (or a given ``state``)
   says otherwise.
 * The committed generation is mirrored on the host: every step bumps
@@ -357,7 +361,7 @@ class SCCService:
         slices: list
         ok: torch.Tensor  # bool[K, B]
         ovf: torch.Tensor  # int32[K]
-        rstats: gs.RepairStats  # K-tuples
+        rstats: gs.RepairStats  # int32[K] tensors
         entry: gs.GraphState  # input state: the partial-replay anchor
         entry_gen: int
         scanned: bool
@@ -382,12 +386,13 @@ class SCCService:
         def resolve_oldest():
             nonlocal scanned
             rec = pending.popleft()
-            ovf_h = rec.ovf.cpu().numpy()
+            ok_h, ovf_h, stats_h = dynamic.read_back(rec.ok, rec.ovf,
+                                                     rec.rstats)
             if np.any(ovf_h):
                 return rec
-            for sl, row in zip(rec.slices, rec.ok.cpu().numpy()):
+            for sl, row in zip(rec.slices, ok_h):
                 ok[sl] = row[: sl.stop - sl.start]
-            repair_rows.extend(zip(*rec.rstats))
+            repair_rows.extend(stats_h.tolist())
             if rec.scanned:
                 scanned += len(rec.slices)
             return None
@@ -432,9 +437,9 @@ class SCCService:
         self._state, ok_dev, ovf_dev, rstats = dynamic.apply_batch_stats(
             self._state, ops, self._cfg)
         self._gen += 1
-        ok = ok_dev.cpu().numpy().copy()
-        self._record_repair(*rstats)
-        if int(ovf_dev) == 0:
+        ok, ovf, stats = dynamic.read_back(ok_dev, ovf_dev, rstats)
+        self._record_repair(*stats.tolist())
+        if int(ovf) == 0:
             return ok
         failed = self._failed_add_lanes(ops, ok)
         if not failed.any():

@@ -1,14 +1,18 @@
 """Counted host synchronisations.
 
 JAX keeps the fixpoint loops, the repair gate and the tier dispatch on the
-device (``lax.while_loop`` / ``lax.cond``).  On the card the port runs
-each fixpoint as one kernel launch that loops on the device, as the while
-loop does, and reads nothing back.  The repair gate, the region sizes for
-the tier choice and the static SCC's outer loop are Python control flow,
-so each of those decisions reads one value back from the device; so does
-every fixpoint round where the per-round loop runs (CPU tensors, DTensors
-over a mesh).  Every such read goes through :data:`SYNCS`, so a run can
-report how many host syncs a step costs.
+device (``lax.while_loop`` / ``lax.cond``).  So does the port on the card:
+each fixpoint, and the static SCC with its outer loop, is one kernel
+launch that loops on the device, and the update step is one replay of a
+captured CUDA graph whose repair gate and tier choice are conditional
+nodes (``core/step_graph.py``), so a step reads nothing back.  On CPU
+tensors and DTensors over a mesh the step runs eagerly and each decision
+reads one value back: the repair gate, the region sizes for the tier
+choice, each outer round of the static SCC and each fixpoint round (the
+per-round loop); so does ``dynamic.apply_batch_stats_eager`` on the card.
+Every such read goes through :data:`SYNCS`, so a run can report how many
+host syncs a step costs.  The service's one deferred read of a
+super-chunk's outputs is not a decision inside a step and is not counted.
 """
 from __future__ import annotations
 

@@ -67,7 +67,9 @@
 // before the pointer-doubling hop of the label and priority forms), and
 // every thread reads whether any lane changed.  The round count and the
 // cap are JAX's exactly; tenant lanes freeze after their first unchanged
-// round.  Bound: bytes, a round's as for the gather form, times the
+// round.  The scc form runs a whole static SCC (trim and both sweeps, round
+// after outer round) in one launch the same way (see scc_rounds).
+// Bound: bytes, a round's as for the gather form, times the
 // rounds; the barriers add a few microseconds a round.  Buffers the launch
 // rewrites are read through L2 (__ldcg), never the read-only path, which
 // may keep last round's words.
@@ -184,7 +186,7 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------- fixpoint ---
 
 enum Form { kReach = 0, kPairForm = 1, kLabel = 2, kPrio = 3, kOrForm = 4,
-            kTrim = 5 };
+            kTrim = 5, kScc = 6 };
 constexpr int kInt32Max = 0x7FFFFFFF;
 constexpr unsigned kPrioInv = 0x0E8B2F51u;  // 0x9E3779B1^-1 mod 2^32
 constexpr int kMaxLanes = 32 * 1024;  // one byte of shared memory a lane
@@ -201,7 +203,7 @@ struct FixArgs {
   unsigned* hop;        // [T, nv] scratch: a round's labels before the hop
   int* flags;           // [4 T + 2] scratch, see fixpoint_rounds
   int* rounds;          // [T] out
-  unsigned long long* tally;  // [6] or null: rounds run, by form
+  unsigned long long* tally;  // [7] or null: rounds run, by form
   long long e, total;   // edges a row, T * e
   int t, f, nv, shortcut, max_iters;
 };
@@ -228,8 +230,9 @@ struct FixMsg {
                  ? 0u : kSent32;
     if (kForm == kOrForm)
       return __ldcg(static_cast<const unsigned*>(state) + at);
-    // label, prio: only vertices inside the mask send
-    return __ldg(mask + row * nv + from)
+    // label, prio: only vertices inside the mask send (the scc form
+    // rewrites its mask between sweeps, so it too is read through L2)
+    return __ldcg(mask + row * nv + from)
                ? __ldcg(static_cast<const unsigned*>(state) + at) : kSent32;
   }
 };
@@ -294,13 +297,13 @@ __device__ __forceinline__ void update(const FixArgs& a, long long i,
   if (kForm == kReach || kForm == kPairForm) {
     auto* st = static_cast<unsigned char*>(a.state);
     const unsigned char old = __ldcg(st + i);
-    const unsigned char nxt = old | (inc == 0u && a.mask[mv]);
+    const unsigned char nxt = old | (inc == 0u && __ldcg(a.mask + mv));
     if (nxt != old) st[i] = nxt;
     ch.note(row, nxt != old, lane_flag);
   } else if (kForm == kOrForm) {
     auto* st = static_cast<unsigned*>(a.state);
     const unsigned old = __ldcg(st + i);
-    const unsigned nxt = old | (a.mask[mv] ? inc : 0u);
+    const unsigned nxt = old | (__ldcg(a.mask + mv) ? inc : 0u);
     if (nxt != old) st[i] = nxt;
     ch.note(row, nxt != old, lane_flag);
   } else if (kForm == kTrim) {
@@ -316,7 +319,7 @@ __device__ __forceinline__ void update(const FixArgs& a, long long i,
     const int old = __ldcg(st + i);
     int in = (int)inc;
     if (in < 0) in = kInt32Max;  // a uint32 >= 2^31 clamps to INT32_MAX
-    const int nxt = a.mask[mv] ? min(old, in) : old;
+    const int nxt = __ldcg(a.mask + mv) ? min(old, in) : old;
     if (hop) {
       a.hop[i] = (unsigned)nxt;
       return;
@@ -325,7 +328,7 @@ __device__ __forceinline__ void update(const FixArgs& a, long long i,
     ch.note(row, nxt != old, lane_flag);
   } else {  // kPrio
     const unsigned old = __ldcg(static_cast<unsigned*>(a.state) + i);
-    a.hop[i] = a.mask[mv] ? min(old, inc) : old;
+    a.hop[i] = __ldcg(a.mask + mv) ? min(old, inc) : old;
   }
 }
 
@@ -336,7 +339,7 @@ __device__ __forceinline__ void hop_update(const FixArgs& a, long long i,
                                            long long row, long long mv,
                                            Changes& ch, int* lane_flag) {
   const unsigned nxt = __ldcg(a.hop + i);
-  const bool on = a.mask[mv];
+  const bool on = __ldcg(a.mask + mv);
   long long w;
   bool jump;
   if (kForm == kLabel) {
@@ -358,23 +361,29 @@ __device__ __forceinline__ void hop_update(const FixArgs& a, long long i,
   ch.note(row, fin != old, lane_flag);
 }
 
-// Every round of one fixpoint in one cooperative launch, JAX's
-// ``while changed & (it < max_iters)``.  A round: the edge gather into out
+// Every round of one fixpoint, JAX's ``while changed & (it < max_iters)``,
+// run by the whole cooperative grid.  A round: the edge gather into out
 // (grid barrier), each vertex word's update, which resets its out word
 // for the next round and notes a change (a barrier; hop forms one more
 // before the hop), then every thread reads whether any lane changed.
+// Returns the rounds run (the most any lane ran) and adds them to
+// tally[kForm].
 //
 // flags: L[2][T] (lane ran in the round of that parity), C[2][T] (lane
 // changed in it), G[2] (some lane changed).  Lane t runs round r when it
 // ran round r - 1 and changed there: L[q] & C[q] with q the parity of
-// r - 1, both untouched during round r (round -1 is all ones).  Round r
-// writes L[p] and zeroes C[p] and G[p] (p = r & 1) before its first
-// barrier; they were last read in round r - 1.  A lane that stopped is
-// frozen: its edges and words are skipped, so it writes nothing more.
+// r - 1, both untouched during round r (round -1 is ``lane_on``, all ones
+// when it is null).  Round r writes L[p] and zeroes C[p] and G[p] (p = r &
+// 1) before its first barrier; they were last read in round r - 1.  A lane
+// that stopped is frozen: its edges and words are skipped, so it writes
+// nothing more.  After the last barrier only G is read, and a following
+// call writes G only after its own first barrier, so the scc form can call
+// this again at once.
 template <int kForm>
-__global__ void __launch_bounds__(kThreads) fixpoint_rounds(FixArgs a) {
-  extern __shared__ unsigned char act[];
-  __shared__ long long s_row;
+__device__ __forceinline__ int fixpoint_body(const FixArgs& a,
+                                             unsigned char* act,
+                                             long long* s_row,
+                                             const int* lane_on) {
   cg::grid_group grid = cg::this_grid();
   const long long first = blockIdx.x * (long long)kThreads + threadIdx.x;
   const long long step = (long long)gridDim.x * kThreads;
@@ -390,8 +399,9 @@ __global__ void __launch_bounds__(kThreads) fixpoint_rounds(FixArgs a) {
   int* any_changed = a.flags + 4 * t;
   for (long long i = first; i < n; i += step) a.out[i] = ident;
   for (long long i = first; i < t; i += step) {
-    lanes_ran[t + i] = 1;
-    lanes_changed[t + i] = 1;
+    const int on = lane_on == nullptr ? 1 : __ldcg(lane_on + i);
+    lanes_ran[t + i] = on;
+    lanes_changed[t + i] = on;
     a.rounds[i] = 0;
   }
   grid.sync();
@@ -434,13 +444,182 @@ __global__ void __launch_bounds__(kThreads) fixpoint_rounds(FixArgs a) {
                           ch, lane_flag);
       }
     }
-    ch.flush(lane_flag, any_changed + p, &s_row);
+    ch.flush(lane_flag, any_changed + p, s_row);
     grid.sync();
     ++it;
     if (!__ldcg(any_changed + p)) break;
   }
   if (first == 0 && a.tally != nullptr)
     atomicAdd(a.tally + kForm, (unsigned long long)it);
+  return it;
+}
+
+template <int kForm>
+__global__ void __launch_bounds__(kThreads) fixpoint_rounds(FixArgs a) {
+  extern __shared__ unsigned char act[];
+  __shared__ long long s_row;
+  fixpoint_body<kForm>(a, act, &s_row, nullptr);
+}
+
+// ------------------------------------------------------- static SCC ---
+//
+// The scc form: the whole of scc_static in one cooperative launch.
+// Replaces the lax.while_loop of the JAX package's static SCC
+// (src/repro/core/scc.py:90-134), whose outer loop the port's host ran
+// with one read of ``unassigned.any()`` a round.  Each outer round, while
+// a lane has unassigned vertices and fewer than max_outer rounds have run:
+//   1. trim's fixpoint (peeled vertices become singleton SCCs);
+//   2. the forward and backward sweeps from the unassigned vertices: min
+//      labels, or, with shortcut, hashed priorities with pointer doubling;
+//   3. done = unassigned & fwd == bwd (with shortcut: equal witnesses
+//      below nv, the label the least member id of each witness group, an
+//      atomicMin into min_id); ccid = label where done; unassigned &= ~done.
+// A grid barrier separates the phases, and each sweep is fixpoint_body
+// above, so its rounds, its cap and its tally are those of its own form.
+// A lane takes part in an outer round only while it has unassigned
+// vertices at its start, so each lane runs its solo rounds.  Bound:
+// bytes, the sum over the sweeps' rounds of one round's bytes.  Chaining
+// the three sweeps in one kernel took 108-114 registers a thread, two
+// blocks an SM; held to three blocks an SM (__launch_bounds__) the grid is
+// half as large again, and update_1m's fixpoint time a step fell from
+// 0.0162 s to 0.0137 s on an H100 (PERF.md, the kernel table).
+struct SccArgs {
+  FixArgs fix;          // src, dst, live, vid, out, hop, flags, tally
+  const uint8_t* active;  // [T, nv]
+  unsigned char* un;    // [T, nv] scratch: the unassigned set
+  int* ccid;            // [T, nv] out
+  unsigned* fwd;        // [T, nv] scratch
+  unsigned* bwd;        // [T, nv] scratch
+  int* min_id;          // [T, nv] scratch (shortcut)
+  int* left;            // [2 T + 2] scratch: lanes with unassigned
+                        // vertices at a round's start, by parity, then
+                        // whether any lane has
+  int* inner;           // [T] scratch: the sweeps' per-lane rounds
+  int* outer;           // [T] out: outer rounds each lane ran
+  int max_outer;
+};
+
+constexpr unsigned kPrioMul = 0x9E3779B1u;
+
+template <bool kShortcut>
+__global__ void __launch_bounds__(kThreads, 3) scc_rounds(SccArgs s) {
+  extern __shared__ unsigned char act[];
+  __shared__ long long s_row;
+  cg::grid_group grid = cg::this_grid();
+  const long long first = blockIdx.x * (long long)kThreads + threadIdx.x;
+  const long long step = (long long)gridDim.x * kThreads;
+  const int t = s.fix.t, nv = s.fix.nv;
+  const long long n = (long long)t * nv;
+  int* any_left = s.left + 2 * t;
+  for (long long i = first; i < 2 * t; i += step) s.left[i] = 0;
+  for (long long i = first; i < t; i += step) s.outer[i] = 0;
+  if (first == 0) any_left[0] = any_left[1] = 0;
+  grid.sync();
+  {
+    Changes ch;
+    for (long long i = first; i < n; i += step) {
+      const unsigned char on = s.active[i];
+      s.un[i] = on;
+      s.ccid[i] = kInt32Max;
+      ch.note(t == 1 ? 0 : i / nv, on, s.left);
+    }
+    ch.flush(s.left, any_left, &s_row);
+  }
+  grid.sync();
+  FixArgs trim = s.fix;
+  trim.state = s.un;
+  trim.ccid = s.ccid;
+  trim.mask = nullptr;
+  trim.rounds = s.inner;
+  FixArgs fw = trim;
+  fw.mask = s.un;
+  fw.state = s.fwd;
+  fw.ccid = nullptr;
+  fw.shortcut = 0;  // the label sweeps of scc_static have no hop
+  FixArgs bw = fw;
+  bw.src = s.fix.dst;
+  bw.dst = s.fix.src;
+  bw.state = s.bwd;
+  constexpr int kSweep = kShortcut ? kPrio : kLabel;
+  int it = 0;
+  while (it < s.max_outer) {
+    const int p = it & 1, q = p ^ 1;
+    if (!__ldcg(any_left + p)) break;
+    const int* on = s.left + p * t;
+    for (long long i = first; i < t; i += step) {
+      s.outer[i] += __ldcg(on + i);
+      s.left[q * t + i] = 0;
+    }
+    if (first == 0) any_left[q] = 0;
+    fixpoint_body<kTrim>(trim, act, &s_row, on);
+    // the sweeps' seeds: every unassigned vertex its own id (priority)
+    for (long long i = first; i < n; i += step) {
+      const long long row = t == 1 ? 0 : i / nv;
+      if (!__ldcg(on + row)) continue;
+      const unsigned v = (unsigned)(t == 1 ? i : i % nv);
+      const bool un = __ldcg(s.un + i);
+      const unsigned seed = kShortcut ? (un ? v * kPrioMul : kSent32)
+                                      : (un ? v : (unsigned)kInt32Max);
+      s.fwd[i] = seed;
+      s.bwd[i] = seed;
+      if (kShortcut) s.min_id[i] = kInt32Max;
+    }
+    grid.sync();
+    fixpoint_body<kSweep>(fw, act, &s_row, on);
+    fixpoint_body<kSweep>(bw, act, &s_row, on);
+    Changes ch;
+    int* next = s.left + q * t;
+    if (kShortcut) {
+      // witnesses: the vertex whose priority a label is, nv for none;
+      // a done vertex leaves its witness in hop for the second pass
+      for (long long i = first; i < n; i += step) {
+        const long long row = t == 1 ? 0 : i / nv;
+        if (!__ldcg(on + row)) continue;
+        unsigned w = kSent32;
+        if (__ldcg(s.un + i)) {
+          const unsigned f = __ldcg(s.fwd + i), b = __ldcg(s.bwd + i);
+          const int wf = f != kSent32 ? (int)(f * kPrioInv) : nv;
+          const int wb = b != kSent32 ? (int)(b * kPrioInv) : nv;
+          if (wf == wb && (unsigned)wf < (unsigned)nv) {
+            w = (unsigned)wf;
+            atomicMin(s.min_id + row * nv + wf, (int)(i - row * nv));
+          }
+        }
+        s.fix.hop[i] = w;
+      }
+      grid.sync();
+      for (long long i = first; i < n; i += step) {
+        const long long row = t == 1 ? 0 : i / nv;
+        if (!__ldcg(on + row)) continue;
+        const unsigned w = __ldcg(s.fix.hop + i);
+        if (w != kSent32) {
+          s.ccid[i] = __ldcg(s.min_id + row * nv + w);
+          s.un[i] = 0;
+        }
+        ch.note(row, w == kSent32 && __ldcg(s.un + i), next);
+      }
+    } else {
+      for (long long i = first; i < n; i += step) {
+        const long long row = t == 1 ? 0 : i / nv;
+        if (!__ldcg(on + row)) continue;
+        bool still = __ldcg(s.un + i);
+        if (still) {
+          const unsigned f = __ldcg(s.fwd + i);
+          if (f == __ldcg(s.bwd + i)) {
+            s.ccid[i] = (int)f;
+            s.un[i] = 0;
+            still = false;
+          }
+        }
+        ch.note(row, still, next);
+      }
+    }
+    ch.flush(next, any_left + q, &s_row);
+    grid.sync();
+    ++it;
+  }
+  if (first == 0 && s.fix.tally != nullptr)
+    atomicAdd(s.fix.tally + kScc, (unsigned long long)it);
 }
 
 cudaError_t launched(cudaError_t err) {
@@ -448,13 +627,14 @@ cudaError_t launched(cudaError_t err) {
   return err != cudaSuccess ? err : last;
 }
 
-// The cooperative grid: enough blocks for the larger of the edge passes
-// and the vertex words, at most the blocks the card holds at once (the
-// occupancy of this kernel at T bytes of shared memory on every SM).
-template <int kForm>
-cudaError_t launch_fixpoint(FixArgs a, cudaStream_t stream) {
-  const auto kernel = fixpoint_rounds<kForm>;
-  const size_t smem = (size_t)a.t;
+// A cooperative grid for ``kernel``: enough blocks for the larger of the
+// edge passes and the vertex words, at most the blocks the card holds at
+// once (the occupancy of this kernel at T bytes of shared memory on every
+// SM).
+template <class Kernel, class Args>
+cudaError_t launch_coop(Kernel kernel, Args a, long long total,
+                        long long words, int t, cudaStream_t stream) {
+  const size_t smem = (size_t)t;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -464,8 +644,7 @@ cudaError_t launch_fixpoint(FixArgs a, cudaStream_t stream) {
                                                         kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  long long work = (a.total + kUnroll - 1) / kUnroll;
-  const long long words = (long long)a.t * a.f * a.nv;
+  long long work = (total + kUnroll - 1) / kUnroll;
   if (words > work) work = words;
   const long long want = (work + kThreads - 1) / kThreads;
   const long long most = (long long)per_sm * sms;
@@ -473,6 +652,12 @@ cudaError_t launch_fixpoint(FixArgs a, cudaStream_t stream) {
   void* args[] = {&a};
   return launched(cudaLaunchCooperativeKernel(
       (const void*)kernel, dim3(grid), dim3(kThreads), args, smem, stream));
+}
+
+template <int kForm>
+cudaError_t launch_fixpoint(FixArgs a, cudaStream_t stream) {
+  return launch_coop(fixpoint_rounds<kForm>, a, a.total,
+                     (long long)a.t * a.f * a.nv, a.t, stream);
 }
 
 // ------------------------------------------------------------ direct ---
@@ -560,16 +745,26 @@ extern "C" int frontier_min_launch(const void* dst, const void* msg, void* out,
 // in place on ``state`` ([T, f, nv]: uint8 for reach / pair / trim, int32
 // words for label / prio / or) and trim's ccid [T, nv].  src, dst int32
 // [T, e] and live uint8 [T, e] as in the gather form; mask uint8 [T, nv]
-// (null for trim); vid int32 [nv] (trim).  Scratch: out int32 [T f nv],
-// hop int32 [T nv] (label with shortcut, prio), flags int32 [4 T + 2].
-// Writes rounds int32 [T], each lane's rounds, and adds the rounds run to
-// tally[form] (uint64 [6]) unless it is null.  Returns the first CUDA
-// error of the launch.
+// (null for trim); vid int32 [nv] (trim, scc).  Scratch: out int32 [T f
+// nv], hop int32 [T nv] (label with shortcut, prio, scc), flags int32
+// [4 T + 2].  Writes rounds int32 [T], each lane's rounds, and adds the
+// rounds run to tally[form] (uint64 [7]) unless it is null.
+//
+// The scc form (form 6, f = 1): the static SCC of the subgraph each lane's
+// mask (``active``) induces, at most max_outer outer rounds, each sweep
+// capped at max_iters rounds; ``state`` is uint8 [T, nv] scratch (the
+// unassigned set), ``ccid`` int32 [T, nv] the labels it writes, ``rounds``
+// each lane's outer rounds, ``work`` int32 [3 T nv + 3 T + 2] scratch;
+// shortcut picks the priority sweeps.  tally[6] counts the outer rounds,
+// the sweeps' rounds go to their own forms.
+//
+// Returns the first CUDA error of the launch.
 extern "C" int frontier_fixpoint_launch(
     const void* src, const void* dst, const void* live, const void* mask,
     void* state, void* ccid, const void* vid, void* out, void* hop,
-    void* flags, void* rounds, void* tally, int t, long long e, int f,
-    int nv, int form, int shortcut, int max_iters, void* stream) {
+    void* flags, void* rounds, void* tally, void* work, int t, long long e,
+    int f, int nv, int form, int shortcut, int max_iters, int max_outer,
+    void* stream) {
   if (t < 1 || t > kMaxLanes) return (int)cudaErrorInvalidValue;
   FixArgs a{static_cast<const int*>(src), static_cast<const int*>(dst),
             static_cast<const uint8_t*>(live),
@@ -580,6 +775,20 @@ extern "C" int frontier_fixpoint_launch(
             static_cast<unsigned long long*>(tally), e, (long long)t * e, t,
             f, nv, shortcut, max_iters};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (form == kScc) {
+    if (f != 1 || work == nullptr) return (int)cudaErrorInvalidValue;
+    const long long n = (long long)t * nv;
+    auto* w = static_cast<int*>(work);
+    SccArgs sa{a, static_cast<const uint8_t*>(mask),
+               static_cast<unsigned char*>(state), static_cast<int*>(ccid),
+               reinterpret_cast<unsigned*>(w),
+               reinterpret_cast<unsigned*>(w + n), w + 2 * n, w + 3 * n,
+               w + 3 * n + 2 * t + 2, static_cast<int*>(rounds), max_outer};
+    sa.fix.rounds = nullptr;
+    return shortcut
+               ? (int)launch_coop(scc_rounds<true>, sa, a.total, n, t, s)
+               : (int)launch_coop(scc_rounds<false>, sa, a.total, n, t, s);
+  }
   switch (form) {
     case kReach: return (int)launch_fixpoint<kReach>(a, s);
     case kPairForm: return (int)launch_fixpoint<kPairForm>(a, s);

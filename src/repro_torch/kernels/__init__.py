@@ -2,7 +2,9 @@
 
 Each wrapper counts its CUDA launches in a ``launches`` attribute (never a
 plain-version call); :func:`launch_counts` reads them all, one count per
-kernel source (hash_probe's three entries together).
+kernel source (hash_probe's three entries together).  Launches made by
+replays of the SMSCC step graph are added in first
+(``_build.flush_graph_launches``: one read of each graph's counters).
 """
 
 
@@ -21,6 +23,8 @@ def _wrappers() -> dict:
 
 def launch_counts() -> dict:
     """Kernel name -> CUDA launches so far."""
+    from repro_torch.kernels import _build
+    _build.flush_graph_launches()
     return {name: sum(fn.launches for fn in fns)
             for name, fns in _wrappers().items()}
 
@@ -28,6 +32,8 @@ def launch_counts() -> dict:
 def lane_launch_counts() -> dict:
     """Kernel name -> CUDA launches of the tenant-row forms so far (the
     kernels that have one)."""
+    from repro_torch.kernels import _build
+    _build.flush_graph_launches()
     return {name: sum(fn.lane_launches for fn in fns)
             for name, fns in _wrappers().items()
             if hasattr(fns[0], "lane_launches")}
@@ -36,7 +42,9 @@ def lane_launch_counts() -> dict:
 def reset_launch_counts() -> None:
     """Every launch count to 0, and the fixpoint launches' round counters
     on the card (``frontier_expand.ops.fixpoint_rounds``)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.frontier_expand import ops as fops
+    _build.flush_graph_launches()
     for fns in _wrappers().values():
         for fn in fns:
             fn.launches = 0

@@ -10,6 +10,11 @@ starts one ``nvcc`` per source at once and waits for all of them.
 Every C entry returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises on a non-zero code, because a refused launch never
 runs and a later synchronise does not report it.
+
+Each wrapper counts its launches through :func:`count`.  While a thread
+captures a step graph (``core/step_graph.py``) its launches go to the
+capture's recorder instead: a capture launches nothing, and the graph
+adds them back for every replay that ran them (:func:`flush_graph_launches`).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
 
@@ -28,7 +34,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("frontier_min", "hash_probe", "bool_matmul", "flash_attention",
-           "embedding_bag")
+           "embedding_bag", "graph_cond")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -123,3 +129,37 @@ def require_kernel_impl(impl: str, name: str) -> None:
             f"(impl='auto' or 'pallas')")
     if impl not in ("auto", "pallas"):
         raise ValueError(f"{name}: unknown impl {impl!r}")
+
+
+# ------------------------------------------------- launches and captures ---
+
+_tls = threading.local()
+# live step graphs: each adds its replays' launches on flush()
+_graph_tallies: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def count(fn, *attrs: str) -> None:
+    """One launch of the wrapper ``fn``: +1 on each of its counters
+    ``attrs`` (``launches``, ``lane_launches``, ``fixpoint_launches``), or
+    on this thread's capture recorder while it captures a step graph."""
+    rec = getattr(_tls, "recorder", None)
+    if rec is not None:
+        rec.add(fn, attrs)
+        return
+    for a in attrs:
+        setattr(fn, a, getattr(fn, a) + 1)
+
+
+def set_recorder(rec) -> None:
+    _tls.recorder = rec
+
+
+def track_graph(g) -> None:
+    """Register a step graph whose ``flush()`` adds its replays' launches
+    to the wrappers' counters."""
+    _graph_tallies.add(g)
+
+
+def flush_graph_launches() -> None:
+    for g in list(_graph_tallies):
+        g.flush()

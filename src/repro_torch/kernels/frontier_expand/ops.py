@@ -17,7 +17,8 @@ and count on ``frontier_min.launches``:
   sweeps (``ref.FORMS``) in one cooperative launch with no host read; its
   launches also count on ``frontier_min.fixpoint_launches``, and the
   rounds it ran on the card add up by form in a device counter
-  (:func:`fixpoint_rounds`).
+  (:func:`fixpoint_rounds`).  Its ``scc`` form runs the whole static SCC
+  of ``core/scc.py`` (the outer loop, trim and both sweeps) in one launch.
 
 Unlike the TPU wrapper there is no size ceiling: the scatter reads each
 edge once whatever NV is.
@@ -49,8 +50,8 @@ def _lib():
     lib.frontier_gather_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.frontier_fixpoint_launch.argtypes = [ctypes.c_void_p] * 12 + [
-        ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+    lib.frontier_fixpoint_launch.argtypes = [ctypes.c_void_p] * 13 + [
+        ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     for fn in (lib.frontier_min_launch, lib.frontier_gather_launch,
                lib.frontier_fixpoint_launch):
@@ -82,7 +83,7 @@ def frontier_min(dst: torch.Tensor, msg: torch.Tensor, nv: int, *,
         _build.check(_lib().frontier_min_launch(
             dst.data_ptr(), m2.data_ptr(), out.data_ptr(), e, f, nv,
             _build.stream_ptr(out)), "frontier_min")
-        frontier_min.launches += 1
+        _build.count(frontier_min, "launches")
     return out[0] if squeeze else out
 
 
@@ -144,7 +145,7 @@ def frontier_gather(src: torch.Tensor, dst: torch.Tensor, live: torch.Tensor,
             src.data_ptr(), dst.data_ptr(), live.data_ptr(), v2.data_ptr(),
             out.data_ptr(), 1, e, f, n_src, nv, ref.MODES.index(mode),
             _build.stream_ptr(out)), "frontier_min")
-        frontier_min.launches += 1
+        _build.count(frontier_min, "launches")
     return out[0] if squeeze else out
 
 
@@ -175,15 +176,15 @@ def _gather_lanes(src, dst, live, val, nv, mode, impl):
             src.data_ptr(), dst.data_ptr(), live.data_ptr(), v3.data_ptr(),
             out.data_ptr(), t, e, f, n_src, nv, ref.MODES.index(mode),
             _build.stream_ptr(out)), "frontier_min")
-        frontier_min.launches += 1
-        frontier_min.lane_launches += 1
+        _build.count(frontier_min, "launches", "lane_launches")
     return out[:, 0] if squeeze else out
 
 
 # per form: the rows of its state (F; None: the state's own) and its dtype
 _FORM_STATE = {"reach": (1, torch.bool), "pair": (2, torch.bool),
                "label": (1, torch.int32), "prio": (1, torch.int64),
-               "or": (None, torch.int32), "trim": (1, torch.bool)}
+               "or": (None, torch.int32), "trim": (1, torch.bool),
+               "scc": (1, torch.bool)}
 # device -> int64[len(FORMS)]: rounds the fixpoint launches ran, by form
 _rounds_run: dict = {}
 
@@ -207,7 +208,9 @@ def _tally(dev):
 def fixpoint_rounds() -> dict:
     """Form -> rounds the fixpoint launches ran on the card since the last
     :func:`reset_fixpoint_rounds` (a read of each card's counter; the
-    tenant-row form counts a launch's rounds once, however many lanes)."""
+    tenant-row form counts a launch's rounds once, however many lanes;
+    ``scc`` counts outer rounds, its sweeps' rounds count on their own
+    forms)."""
     total = dict.fromkeys(ref.FORMS, 0)
     for t in _rounds_run.values():
         for form, n in zip(ref.FORMS, t.tolist()):
@@ -222,7 +225,8 @@ def reset_fixpoint_rounds() -> None:
 
 def frontier_fixpoint(form: str, src: torch.Tensor, dst: torch.Tensor,
                       live: torch.Tensor, mask, state, max_iters: int, *,
-                      shortcut: bool = False, vid=None, impl: str = "auto"):
+                      shortcut: bool = False, vid=None, max_outer: int = 0,
+                      impl: str = "auto"):
     """Every round of the fixpoint ``form`` (``ref.FORMS``) until a round
     changes nothing or ``max_iters`` rounds have run, as JAX's
     ``lax.while_loop`` runs it: ``(state, rounds)``, rounds int32 (0-d,
@@ -236,6 +240,12 @@ def frontier_fixpoint(form: str, src: torch.Tensor, dst: torch.Tensor,
     [T, E] edges with row-local ids, a leading [T] on states and masks.
     The input state is not written.
 
+    ``scc``: the static SCC of the subgraph ``mask`` (the active set)
+    induces, as ``ref.scc_loop``: at most ``max_outer`` outer rounds of
+    trim and the two sweeps (priorities with pointer doubling under
+    ``shortcut``, else min labels), each sweep capped at ``max_iters``;
+    ``state`` is ignored.  Returns ``(ccid int32[NV], outer rounds)``.
+
     On the card one cooperative launch runs every round with no host
     read; edges whose ids fall outside ``[0, NV)`` are dropped (the plain
     version's trim takes none).
@@ -243,10 +253,12 @@ def frontier_fixpoint(form: str, src: torch.Tensor, dst: torch.Tensor,
     if form not in ref.FORMS:
         raise ValueError(f"unknown form {form!r}; expected one of "
                          f"{ref.FORMS}")
-    first = state[0] if form == "trim" else state
+    first = mask if form == "scc" else (state[0] if form == "trim"
+                                        else state)
     if first.device.type == "cpu":
         return ref.frontier_fixpoint(form, src, dst, live, mask, state,
-                                     max_iters, shortcut=shortcut, vid=vid)
+                                     max_iters, shortcut=shortcut, vid=vid,
+                                     max_outer=max_outer)
     _build.require_kernel_impl(impl, "frontier_min")
     dev = first.device
     lanes = src.dim() == 2
@@ -257,6 +269,9 @@ def frontier_fixpoint(form: str, src: torch.Tensor, dst: torch.Tensor,
     if dst.shape != src.shape or live.shape != src.shape:
         raise ValueError("src, dst and live must share one shape")
     t = src.shape[0] if lanes else 1
+    if form == "scc":
+        return _scc_launch(src, dst, live, mask.contiguous(), t, nd,
+                           int(max_iters), int(max_outer), shortcut)
     f, dtype = _FORM_STATE[form]
     rows = f is None or f > 1
     # the state the launch rewrites in place, as bytes or 32-bit words
@@ -296,16 +311,51 @@ def frontier_fixpoint(form: str, src: torch.Tensor, dst: torch.Tensor,
     _build.check(_lib().frontier_fixpoint_launch(
         src.data_ptr(), dst.data_ptr(), live.data_ptr(), mask_ptr,
         work.data_ptr(), aux, vid_ptr, out.data_ptr(), hop.data_ptr(),
-        flags.data_ptr(), rounds.data_ptr(), tally.data_ptr(), t,
+        flags.data_ptr(), rounds.data_ptr(), tally.data_ptr(), 0, t,
         src.shape[-1], f, nv,
-        ref.FORMS.index(form), int(shortcut), max(int(max_iters), 0),
+        ref.FORMS.index(form), int(shortcut), max(int(max_iters), 0), 0,
         _build.stream_ptr(out)), "frontier_fixpoint")
-    frontier_min.launches += 1
-    frontier_min.fixpoint_launches += 1
-    if lanes:
-        frontier_min.lane_launches += 1
+    _count_fixpoint(lanes)
     if form == "prio":
         work = ref.words_to_u32(work)
     if form == "trim":
         work = (work, ccid)
     return work, rounds if lanes else rounds[0]
+
+
+def _count_fixpoint(lanes: bool) -> None:
+    _build.count(frontier_min, "launches", "fixpoint_launches",
+                 *(("lane_launches",) if lanes else ()))
+
+
+def _scc_launch(src, dst, live, active, t, nd, max_inner, max_outer,
+                shortcut):
+    """The scc form's launch: (ccid, outer rounds)."""
+    dev = active.device
+    _build.require(active, "mask", torch.bool, nd, dev)
+    nv = active.shape[-1]
+    if (nd == 2 and active.shape[0] != t) or (nv >= ref.SENT_PREIMAGE
+                                              and shortcut):
+        raise ValueError(f"scc takes a mask [{t}, NV] per row of edges "
+                         "(NV below the priority sentinel)"
+                         if nd == 2 else "vertex ids must stay below the "
+                         "priority sentinel")
+    n = t * nv
+    un = torch.empty(active.shape, dtype=torch.bool, device=dev)
+    ccid = torch.empty(active.shape, dtype=torch.int32, device=dev)
+    vid = torch.arange(nv, dtype=torch.int32, device=dev)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    hop = torch.empty(n, dtype=torch.int32, device=dev)
+    flags = torch.empty(4 * t + 2, dtype=torch.int32, device=dev)
+    rounds = torch.empty(t, dtype=torch.int32, device=dev)
+    work = torch.empty(3 * n + 3 * t + 2, dtype=torch.int32, device=dev)
+    tally = _tally(dev)
+    _build.check(_lib().frontier_fixpoint_launch(
+        src.data_ptr(), dst.data_ptr(), live.data_ptr(), active.data_ptr(),
+        un.data_ptr(), ccid.data_ptr(), vid.data_ptr(), out.data_ptr(),
+        hop.data_ptr(), flags.data_ptr(), rounds.data_ptr(),
+        tally.data_ptr(), work.data_ptr(), t, src.shape[-1], 1, nv,
+        ref.FORMS.index("scc"), int(shortcut), max(max_inner, 0),
+        max(max_outer, 0), _build.stream_ptr(ccid)), "frontier_fixpoint")
+    _count_fixpoint(nd == 2)
+    return ccid, rounds if nd == 2 else rounds[0]

@@ -14,6 +14,9 @@ SMSCC sweeps, :data:`FORMS`, until a round changes nothing or
 ``max_iters`` rounds have run.  :func:`round_body` is each form's round,
 written once: the kernel's plain version runs it over the plain gather,
 ``core/reach.py``'s per-round loop over the gather's wrapper.
+:func:`scc_loop` is the ``scc`` form's outer loop, written once too: the
+plain version runs it over the plain fixpoints, ``core/scc.py`` over
+``core/reach.py``'s for CPU tensors and DTensors.
 """
 from __future__ import annotations
 
@@ -29,8 +32,9 @@ MODES = ("min", "pair", "or")
 INT32_MAX = 2 ** 31 - 1
 # the fixpoint forms, in the kernel's order: boolean reachability, the
 # fused FW/BW pair, min-label propagation (optionally pointer doubling),
-# hashed-priority witnesses, packed Reachable batches, and trim's peel
-FORMS = ("reach", "pair", "label", "prio", "or", "trim")
+# hashed-priority witnesses, packed Reachable batches, trim's peel, and
+# the whole static SCC (its outer loop over trim and the two sweeps)
+FORMS = ("reach", "pair", "label", "prio", "or", "trim", "scc")
 
 # Bijective priority hash (odd multiplier mod 2^32) and its inverse: the
 # JAX package's hashed priorities, so pointer doubling collapses monotone
@@ -281,11 +285,101 @@ def fixpoint_loop(body, init, max_iters: int, lanes: bool, read=bool):
     return state, rounds
 
 
+def _tally(tally, form, rounds, on) -> None:
+    """tally[form] += the rounds the sweep ran: the most any lane that
+    takes part ran (a launch over lanes counts its rounds once)."""
+    if tally is not None:
+        tally[form] = tally.get(form, 0) + int(
+            (rounds * on).max() if rounds.dim() else rounds)
+
+
+def scc_loop(src, dst, live, active, max_outer: int, max_inner: int, *,
+             shortcut: bool = False, fix=None, read=bool, tally=None):
+    """The static SCC of the subgraph ``active`` induces, as the JAX
+    package's ``scc_static`` runs it: while some vertex is unassigned and
+    fewer than ``max_outer`` rounds have run, trim (peeled vertices are
+    singleton SCCs), then the forward and backward sweeps from the
+    unassigned vertices (min labels; under ``shortcut`` hashed priorities
+    with pointer doubling, the label the least member id of each witness
+    group), and every vertex whose two sweeps agree takes its label.
+    Returns ``(ccid int32[NV], outer rounds)``: labels INT32_MAX outside
+    ``active`` and where ``max_outer`` ran out; rounds int32, 0-d, or [T]
+    for tenant lanes ([T, C] edges, [T, NV] ``active``), each lane
+    counting the rounds it had unassigned vertices at the start of (a
+    lane with none passes through a round unchanged).
+
+    ``fix(form, src, dst, live, mask, init, max_iters, shortcut=, vid=)``
+    runs one fixpoint (default: the plain version); ``read`` brings the
+    loop's flag to the host; ``tally`` (a dict) adds each form's rounds
+    as the kernel's counter does, and ``scc`` the outer rounds."""
+    fix = fix or frontier_fixpoint
+    nv = active.shape[-1]
+    dev = active.device
+    vid = torch.arange(nv, dtype=torch.int32, device=dev)
+    ccid = torch.full(active.shape, INT32_MAX, dtype=torch.int32,
+                      device=dev)
+    unassigned = active
+    outer = torch.zeros(active.shape[:-1], dtype=torch.int32, device=dev)
+    if shortcut and nv >= SENT_PREIMAGE:
+        raise ValueError("vertex ids must stay below the priority sentinel")
+    it = 0
+    while it < max_outer and read(unassigned.any()):
+        on = unassigned.any(-1)
+        outer = outer + on.int()
+        (unassigned, ccid), n = fix("trim", src, dst, live, None,
+                                    (unassigned, ccid), max_inner, vid=vid)
+        _tally(tally, "trim", n, on)
+        if shortcut:
+            lab0 = torch.where(unassigned, prio(vid), PRIO_SENT)
+            wit = []
+            for s, d in ((src, dst), (dst, src)):
+                lab, n = fix("prio", s, d, live, unassigned, lab0, max_inner)
+                _tally(tally, "prio", n, on)
+                wit.append(torch.where(lab != PRIO_SENT, unprio(lab), nv))
+            fwd, bwd = wit
+            done = unassigned & (fwd == bwd) & (fwd < nv)
+            # canonical label = min member id of each witness group (one
+            # sentinel column per lane: groups never cross lanes)
+            grp = torch.where(done, fwd, nv).long()
+            min_id = torch.full((*active.shape[:-1], nv + 1), INT32_MAX,
+                                dtype=torch.int32, device=dev)
+            min_id.scatter_reduce_(-1, grp, torch.where(done, vid, INT32_MAX)
+                                   .expand_as(grp), reduce="amin")
+            ccid = torch.where(done, take(min_id, fwd.clamp(max=nv)), ccid)
+        else:
+            init = torch.where(unassigned, vid, INT32_MAX)
+            lab = []
+            for s, d in ((src, dst), (dst, src)):
+                out, n = fix("label", s, d, live, unassigned, init,
+                             max_inner)
+                _tally(tally, "label", n, on)
+                lab.append(out)
+            fwd, bwd = lab
+            done = unassigned & (fwd == bwd)
+            ccid = torch.where(done, fwd, ccid)
+        unassigned = unassigned & ~done
+        it += 1
+    if tally is not None:
+        tally["scc"] = tally.get("scc", 0) + it
+    return ccid, outer
+
+
 def frontier_fixpoint(form: str, src, dst, live, mask, state,
-                      max_iters: int, *, shortcut: bool = False, vid=None):
+                      max_iters: int, *, shortcut: bool = False, vid=None,
+                      max_outer: int = 0, tally=None):
     """Every round of the fixpoint ``form`` (:func:`round_body`) until one
-    changes nothing or ``max_iters`` have run: (state, rounds)."""
-    return fixpoint_loop(
+    changes nothing or ``max_iters`` have run: (state, rounds).  ``scc``
+    is :func:`scc_loop` over these fixpoints, ``mask`` its active set;
+    ``tally`` (a dict) adds up rounds by form as the kernel's counter
+    does."""
+    if form == "scc":
+        return scc_loop(src, dst, live, mask, max_outer, max_iters,
+                        shortcut=shortcut, tally=tally)
+    out = fixpoint_loop(
         lambda s: round_body(form, src, dst, live, mask, s,
                              shortcut=shortcut, vid=vid),
         state, max_iters, src.dim() == 2)
+    if tally is not None:
+        tally[form] = tally.get(form, 0) + int(out[1].max()
+                                               if out[1].dim() else out[1])
+    return out

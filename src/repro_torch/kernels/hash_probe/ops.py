@@ -74,9 +74,8 @@ def _check_args(src, dst, state, base, u, v, max_probes, enable=None):
 
 
 def _count(fn, src):
-    fn.launches += 1
-    if src.dim() == 2:
-        fn.lane_launches += 1
+    _build.count(fn, "launches", *(("lane_launches",) if src.dim() == 2
+                                   else ()))
 
 
 def probe(src, dst, state, base, u, v, *, max_probes: int,

@@ -41,7 +41,7 @@ def bool_matmul(a: torch.Tensor, b: torch.Tensor, *, impl: str = "auto"
     out = torch.empty((m, n), dtype=torch.bool, device=a.device)
     _build.check(_entry()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,
                           k, _build.stream_ptr(out)), "bool_matmul")
-    bool_matmul.launches += 1
+    _build.count(bool_matmul, "launches")
     return out
 
 

@@ -41,6 +41,7 @@ import torch
 from repro_torch import configs
 from repro_torch.configs import smscc
 from repro_torch.core import graph_state as gs
+from repro_torch.core import step_graph
 from repro_torch.core.service import SCCService
 from repro_torch.launch import stream
 from repro_torch.models import transformer as tf
@@ -169,8 +170,7 @@ def serve_tenants(steps: int, tenants: int, nv: int = 256,
 
 
 def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    step_graph.synchronize(device)
 
 
 def serve_lm(cfg: tf.LMConfig, steps: int = 32, *, batch: int = 4,

@@ -15,7 +15,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core import dynamic
+from repro_torch.core import dynamic, step_graph
 
 __all__ = ["BucketedScheduler", "run_stream", "run_concurrent_stream",
            "StreamReport", "typed_op_stream"]
@@ -140,8 +140,6 @@ def run_stream(service, n_ops: int, *, add_frac: float = 0.6,
     chunk (``chunks`` says how many ran); ``record`` collects every
     Result's ``(value, gen)``.  Deterministic in ``seed``.
     """
-    import torch
-
     from repro_torch import kernels
     from repro_torch.api import GraphClient, Reachable, SameSCC
     from repro_torch.core.broker import QueryBroker
@@ -161,8 +159,7 @@ def run_stream(service, n_ops: int, *, add_frac: float = 0.6,
         syncs, launches = SYNCS.count, kernels.launch_counts()
         t0 = time.perf_counter()
         out = fn()
-        if service.device.type == "cuda":
-            torch.cuda.synchronize(service.device)
+        step_graph.synchronize(service.device)
         acc = spent[side]
         acc["s"] += time.perf_counter() - t0
         acc["syncs"] += SYNCS.count - syncs
@@ -242,8 +239,6 @@ def run_concurrent_stream(service, n_ops: int, *, readers: int = 2,
     ``record`` collects each reader batch as ``(reader, kind, u, v,
     values, gen)`` so a caller can check it against an oracle.
     """
-    import torch
-
     from repro_torch.api import GraphClient, Reachable, SameSCC
     from repro_torch.core.broker import QueryBroker
 
@@ -307,8 +302,7 @@ def run_concurrent_stream(service, n_ops: int, *, readers: int = 2,
         for t in threads:
             t.join()
         broker.stop()
-    if service.device.type == "cuda":
-        torch.cuda.synchronize(service.device)
+    step_graph.synchronize(service.device)
     wall = time.perf_counter() - t0
     if errors:
         raise errors[0]

@@ -482,7 +482,7 @@ def test_apply_batch_matches(name):
         np.testing.assert_array_equal(_np(tok), np.asarray(jok), ctx)
         assert int(tovf) == int(jovf), ctx
         assert tuple(trep) == tuple(int(x) for x in jrep), ctx
-        tiers.add(trep.tier)
+        tiers.add(int(trep.tier))
     assert tiers - {tdyn.TIER_SKIP}, f"{name}: no step ran a repair"
 
 

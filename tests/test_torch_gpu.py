@@ -1156,3 +1156,273 @@ def test_frontier_step_and_closure_launch_bool_matmul(cuda):
     assert kernels.launch_counts()["bool_matmul"] == 1 + (n - 1).bit_length()
     assert torch.equal(step.cpu(), bref.frontier_step(adj.cpu(), f.cpu()))
     assert torch.equal(clo.cpu(), bref.closure(adj.cpu()))
+
+
+# ------------------------------------- the static SCC and the step graph ---
+
+def _scc_case(seed, nv, e, depth):
+    """A chain of ``depth`` 2-cycles {2i, 2i+1} (2i+1 -> 2i+2: min labels
+    settle one a round), random edges among the other vertices, dead slots
+    and inactive vertices off the chain: (src, dst, live, active)."""
+    rng = np.random.default_rng(seed)
+    chain = [(2 * i, 2 * i + 1) for i in range(depth)] + \
+        [(2 * i + 1, 2 * i) for i in range(depth)] + \
+        [(2 * i + 1, 2 * i + 2) for i in range(depth - 1)]
+    lo = 2 * depth
+    src = np.concatenate([np.array([a for a, _ in chain], np.int32),
+                          rng.integers(lo, nv, e).astype(np.int32)])
+    dst = np.concatenate([np.array([b for _, b in chain], np.int32),
+                          rng.integers(lo, nv, e).astype(np.int32)])
+    live = rng.random(src.shape[0]) < 0.9
+    live[:len(chain)] = True
+    active = rng.random(nv) < 0.9
+    active[:lo] = True
+    return [torch.from_numpy(x) for x in (src, dst, live, active)]
+
+
+@pytest.mark.parametrize("max_outer", [2, 300])
+@pytest.mark.parametrize("t_n", [None, 3, 256])
+@pytest.mark.parametrize("shortcut", [False, True])
+def test_scc_form_matches_plain(cuda, shortcut, t_n, max_outer):
+    """The scc form (the whole static SCC in one launch) == its plain
+    version on CPU copies: labels, each lane's outer rounds and the rounds
+    by form on the card's counter; one launch, no host read.  Lanes of
+    other depths (an empty one among them) each equal their solo run."""
+    if t_n is None:
+        args = _scc_case(0, 3000, 4000, 40)
+    else:
+        nv, e = (3000, 4000) if t_n == 3 else (64, 120)
+        depths = (0, 5, 40) if t_n == 3 else [i % 25 for i in range(t_n)]
+        cases = [_scc_case(200 + i, nv, e, max(d, 1))
+                 for i, d in enumerate(depths)]
+        e_max = max(c[0].shape[0] for c in cases)
+        for c, d in zip(cases, depths):
+            if d == 0:
+                c[3][:] = False
+            pad = e_max - c[0].shape[0]  # dead slots to one row length
+            for k in range(3):
+                c[k] = torch.cat([c[k], torch.zeros(pad, dtype=c[k].dtype)])
+        args = [torch.stack(list(c)) for c in zip(*cases)]
+    card = [x.to(cuda) for x in args]
+    fops.reset_fixpoint_rounds()
+    before = (fops.frontier_min.fixpoint_launches, SYNCS.count)
+    got, outer = fops.frontier_fixpoint("scc", *card, None, 500,
+                                        shortcut=shortcut,
+                                        max_outer=max_outer)
+    assert (fops.frontier_min.fixpoint_launches, SYNCS.count) == (
+        before[0] + 1, before[1])
+    rounds = fops.fixpoint_rounds()
+    tally = {}
+    want, want_outer = fref.frontier_fixpoint(
+        "scc", *args, None, 500, shortcut=shortcut, max_outer=max_outer,
+        tally=tally)
+    assert torch.equal(got.cpu(), want) and torch.equal(outer.cpu(),
+                                                        want_outer)
+    assert {k: n for k, n in rounds.items() if n} == \
+        {k: n for k, n in tally.items() if n}
+    if t_n == 3:
+        for t in range(t_n):
+            solo, n = fops.frontier_fixpoint(
+                "scc", *(x[t] for x in card), None, 500, shortcut=shortcut,
+                max_outer=max_outer)
+            assert torch.equal(solo, got[t]) and int(n) == int(outer[t])
+
+
+def _tier_cfg(name):
+    import tier_stream
+    kw = dict(tier_stream.CONFIG)
+    kw["repair_gate"] = name != "gate_off"
+    kw["shortcut"] = name == "shortcut"
+    return tgs.GraphConfig(**kw)
+
+
+def _leaves_equal(a, b):
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(x.cpu(), y.cpu())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@pytest.mark.parametrize("name", ["tiered", "gate_off", "shortcut"])
+def test_step_graph_matches_eager_and_cpu(cuda, name, monkeypatch):
+    """The step as a captured graph (captured under sync debug "error",
+    so a read back inside it raises) == the eager per-decision step on the
+    card == the CPU step, exactly: state, ok, overflow and RepairStats,
+    over a stream that takes the skip, the dense tier, both compact
+    buckets and the full tier; no host read inside a step; the graph's
+    replays count the launches the eager step makes; then the whole
+    stream as one super-chunk through the scan entry."""
+    import tier_stream
+    from repro_torch import kernels
+    from repro_torch.core import dynamic, step_graph
+
+    monkeypatch.setattr(step_graph, "SYNC_DEBUG", True)
+    step_graph.clear()
+    cfg = _tier_cfg(name)
+    batches = tier_stream.batches()
+    st = {k: tgs.all_singletons(cfg, d) for k, d in
+          (("graph", cuda), ("eager", cuda), ("cpu", "cpu"))}
+    seen = set()
+    launches = {}
+    captures = step_graph.captures
+    for i, (k, u, v) in enumerate(batches):
+        ops = dynamic.make_ops(k, u, v)
+        out = {}
+        for key, fn in (("graph", dynamic.apply_batch_stats),
+                        ("eager", dynamic.apply_batch_stats_eager),
+                        ("cpu", dynamic.apply_batch_stats)):
+            kernels.reset_launch_counts()
+            s0 = SYNCS.count
+            out[key] = fn(st[key], ops, cfg)
+            if key == "graph":
+                assert SYNCS.count == s0, f"step {i}: a host read"
+            launches[key] = kernels.launch_counts()
+            st[key] = out[key][0]
+        assert launches["graph"] == launches["eager"], f"step {i}"
+        g = out["graph"]
+        for key in ("eager", "cpu"):
+            o = out[key]
+            assert _leaves_equal(g[0], o[0]), f"{key} step {i}: state"
+            assert torch.equal(g[1].cpu(), o[1].cpu())
+            assert int(g[2]) == int(o[2])
+            assert [int(x) for x in g[3]] == [int(x) for x in o[3]], \
+                f"{key} step {i}: {[int(x) for x in g[3]]}"
+        rep = g[3]
+        seen.add("skip" if int(rep.tier) == dynamic.TIER_SKIP else
+                 dynamic.branches(cfg)[int(dynamic.tier_code(
+                     cfg, rep.region_vertices, rep.region_edges))])
+    assert seen == set(dynamic.branches(cfg)) | (
+        {"skip"} if cfg.repair_gate else set())
+    assert step_graph.captures == captures + 1
+    stacked = dynamic.make_ops(*(np.stack(c) for c in zip(*batches)))
+    runs = {key: dynamic.apply_batch_scan(tgs.all_singletons(cfg, d),
+                                          stacked, cfg)
+            for key, d in (("graph", cuda), ("cpu", "cpu"))}
+    assert _leaves_equal(runs["graph"][0], runs["cpu"][0])
+    for a, b in zip(runs["graph"][1:3], runs["cpu"][1:3]):
+        assert torch.equal(a.cpu(), b)
+    for a, b in zip(runs["graph"][3], runs["cpu"][3]):
+        assert torch.equal(a.cpu(), b)
+    assert _leaves_equal(runs["graph"][0], st["cpu"])
+
+
+def test_step_graph_never_rewrites_a_held_snapshot(cuda):
+    """A reader's committed snapshot stays bit-identical while the service
+    runs 4 more super-chunks through the same graph; the super-chunk
+    entries the partial replay holds too."""
+    import tier_stream
+    from repro_torch.core import step_graph
+
+    cfg = _tier_cfg("tiered")
+    svc = SCCService(cfg, buckets=(tier_stream.B,), scan_lengths=(1, 4),
+                     state=tgs.all_singletons(cfg, cuda))
+    batches = tier_stream.batches(seed=5, n_random=16)
+    svc._apply_chunk(*(np.concatenate(c) for c in zip(*batches[:4])))
+    held = svc.state
+    copy = [x.cpu().clone() for x in _flat(held)]
+    n = step_graph.captures
+    for c in range(4):  # 4 chunks of 4 steps: one super-chunk each
+        part = batches[4 + 4 * c:8 + 4 * c]
+        svc._apply_chunk(*(np.concatenate(x) for x in zip(*part)))
+        assert all(torch.equal(a.cpu(), b)
+                   for a, b in zip(_flat(held), copy)), f"chunk {c}"
+    assert step_graph.captures == n
+    assert svc.stats()["scan_dispatches"] >= 4
+
+
+def _flat(state):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(state)
+
+
+def test_step_graph_recaptures_on_grow(cuda):
+    """A table too small for the stream: the service grows mid-stream
+    (a new cfg, so a new capture) and the card stays exactly the CPU's:
+    acks, labels and edges."""
+    import tier_stream
+    from repro_torch.core import step_graph
+
+    cfg = tgs.GraphConfig(**dict(tier_stream.CONFIG, edge_capacity=64,
+                                 max_probes=8))
+    runs = {}
+    n = step_graph.captures
+    for dev in (cuda, torch.device("cpu")):
+        svc = SCCService(cfg, buckets=(tier_stream.B,), scan_lengths=(1, 4),
+                         state=tgs.all_singletons(cfg, dev))
+        oks = [svc._apply_chunk(*(np.concatenate(x) for x in zip(*part)))
+               for part in (tier_stream.batches(seed=s, n_random=4)[-4:]
+                            for s in range(6))]
+        runs[dev.type] = (np.concatenate(oks), svc.state.ccid.cpu(),
+                          svc.edge_set(), svc.cfg.edge_capacity,
+                          svc.stats()["grows"])
+    assert runs["cuda"][3] > 64 and runs["cuda"][4] > 0
+    assert step_graph.captures >= n + 2
+    np.testing.assert_array_equal(runs["cuda"][0], runs["cpu"][0])
+    assert torch.equal(runs["cuda"][1], runs["cpu"][1])
+    assert runs["cuda"][2:] == runs["cpu"][2:]
+
+
+def test_step_graph_captures_on_streams_of_its_own(cuda):
+    """A capture's streams (the capture's and each branch depth's) are
+    never handed out by PyTorch's stream pool, whose 32 streams other code
+    shares: a pooled stream already capturing could be asked to capture a
+    branch (cudaErrorIllegalState)."""
+    import tier_stream
+    from repro_torch.core import dynamic, step_graph
+
+    step_graph.clear()
+    cfg = _tier_cfg("tiered")
+    k, u, v = tier_stream.batches()[0]
+    dynamic.apply_batch_stats(tgs.all_singletons(cfg, cuda),
+                              dynamic.make_ops(k, u, v), cfg)
+    own = {s.cuda_stream for s in step_graph._streams.values()}
+    assert len(own) >= 3  # the capture's, depth 0 and 1
+    pooled = {torch.cuda.Stream(cuda).cuda_stream for _ in range(64)}
+    assert not own & pooled
+
+
+def test_device_waits_beside_captures_in_another_thread(cuda):
+    """A thread captures step graphs (a new cfg each, so a new capture
+    each) while this one keeps the card busy and waits for it through
+    ``step_graph.synchronize``, as a writer's client waits beside its
+    replicas: the card refuses a device-wide wait while any stream
+    captures, so every wait must fall between captures.  Every capture
+    completes and its step equals the eager step."""
+    import threading
+
+    import tier_stream
+    from repro_torch.core import dynamic, step_graph
+
+    step_graph.clear()
+    k, u, v = tier_stream.batches()[0]
+    ops = dynamic.make_ops(k, u, v)
+    cfgs = [tgs.GraphConfig(**dict(tier_stream.CONFIG, edge_capacity=c))
+            for c in (128, 256, 512, 1024, 2048, 4096)]
+    outs, errors = [], []
+
+    def capture():
+        try:
+            for cfg in cfgs:
+                outs.append(dynamic.apply_batch_stats(
+                    tgs.all_singletons(cfg, cuda), ops, cfg))
+        except Exception as e:  # raised below, on the test's thread
+            errors.append(e)
+
+    n = step_graph.captures
+    x = torch.zeros(1 << 20, device=cuda)
+    waits = 0
+    t = threading.Thread(target=capture)
+    t.start()
+    while t.is_alive():
+        x.add_(1)
+        step_graph.synchronize(cuda)
+        waits += 1
+    t.join()
+    assert not errors, errors
+    assert step_graph.captures == n + len(cfgs) and waits > 0
+    for cfg, got in zip(cfgs, outs):
+        want = dynamic.apply_batch_stats_eager(
+            tgs.all_singletons(cfg, cuda), ops, cfg)
+        assert _leaves_equal(got[0], want[0])
+        assert torch.equal(got[1].cpu(), want[1].cpu())
+        assert int(got[2]) == int(want[2])
+        assert [int(a) for a in got[3]] == [int(b) for b in want[3]]
