@@ -80,10 +80,13 @@ Phases, each printing one line or more:
 7. LM main path: ``launch.serve.serve_lm`` with Qwen3-14B at full width and
    depth (40 layers, bf16, random weights from a seeded generator on the
    card, flash attention): 4 requests of 4096 prompt tokens, then 32
-   greedy decode steps; flash must launch once per layer of the prefill,
-   on the [B,S,H,D] buffers as they lie (no layout copy);
-   one more decode step, replayed from a CUDA graph, gives the device's
-   time per step apart from the host's;
+   greedy decode steps, twice on the same weights and prompts: the eager
+   loop (every op issued from Python), then as the server decodes on a
+   card, one replay of the captured decode step a token
+   (``launch.serve.DecodeGraph``, captured once), its device time from
+   CUDA events around the replays; the tokens must be identical, and
+   both runs' tokens/s are reported; flash must launch once per layer of
+   the prefill, on the [B,S,H,D] buffers as they lie (no layout copy);
    then the MoE archs the same way: moonshot-v1-16b-a3b at full width and
    depth (48 layers, 64 experts top-6 + 2 shared, bf16, 28552923136
    parameters) and qwen3-moe-235b-a22b at full width and 4 of its 94
@@ -110,8 +113,11 @@ Phases, each printing one line or more:
    tier) and one booted at 1024 slots (it overflows, replays solo and
    migrates) takes 8 waves of one 1024-op chunk per tenant; every tenant
    must equal its own single-tenant SCCService fed the same chunks on
-   the card (ops/s of both), labels a static recompute for a sample;
-   class A's host syncs per wave at T = 256 within 2x of T = 8; 8 tenants
+   the card (ops/s of both), labels a static recompute for a sample
+   and for every class-A tenant; each wave a lane-graph replay per
+   dispatch, class A's host syncs per wave at most 1.5 at T = 256 and at
+   T = 8 (the flush's one transfer), the lane graphs captured within the
+   engine's compile bound, the scc form's launches counted; 8 tenants
    on the card equal the CPU; ``serve_tenants`` plain and with a durable
    root (its stores open equal on the CPU); one chaos soak seed.  The
    tenant-row forms of frontier_min and hash_probe are held to their
@@ -1689,22 +1695,36 @@ def bag_path(torch, dev, n_requests=8) -> dict:
 
 
 def lm_path(torch, dev, cfg, *, batch=4, prompt=4096, steps=32,
-            graph_reps=8, reduced=None) -> dict:
-    """``cfg`` through ``serve_lm``: ``batch`` requests of ``prompt``
-    tokens, then ``steps`` greedy decode steps; then one decode step
-    replayed from a CUDA graph for its device time alone.  Flash must
-    launch once per layer, on the [B,S,H,D] buffers as they lie."""
+            reduced=None) -> dict:
+    """``cfg`` through ``serve_lm`` twice on the same weights and prompts:
+    ``batch`` requests of ``prompt`` tokens, then ``steps`` greedy decode
+    steps, first issued eagerly from Python (the path the graph is held
+    to), then as the server runs them on a card: one replay of the
+    captured decode step a token (the report's main fields; the eager
+    run's under ``eager``).  The tokens must be identical and the graph
+    captured once.  Flash must launch once per layer of the prefill, on
+    the [B,S,H,D] buffers as they lie; the launch counts are the graph
+    run's."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import ops as aops
     from repro_torch.launch import serve
 
+    kw = dict(batch=batch, prompt_len=prompt, cache_len=prompt + steps,
+              device=str(dev), seed=SEED)
+    eager = serve.serve_lm(cfg, steps, decode="eager", **kw)
+    torch.cuda.empty_cache()
     kernels.reset_launch_counts()
     copies = aops.mha.layout_copies
-    rep = serve.serve_lm(cfg, steps, batch=batch, prompt_len=prompt,
-                         cache_len=prompt + steps, device=str(dev),
-                         seed=SEED, graph_reps=graph_reps)
+    captures = serve.decode_captures
+    rep = serve.serve_lm(cfg, steps, decode="graph", **kw)
     rep["launches"] = kernels.launch_counts()
     rep["flash_layout_copies"] = aops.mha.layout_copies - copies
+    rep["decode_captures"] = serve.decode_captures - captures
+    rep["eager"] = {k: eager[k] for k in (
+        "prefill_s", "decode_s", "decode_tok_per_s",
+        "host_s_per_decode_step", "peak_mem_bytes")}
+    rep["graph_vs_eager_decode"] = (rep["decode_tok_per_s"]
+                                    / eager["decode_tok_per_s"])
     if cfg.moe is not None:
         rep["n_active_params"] = cfg.n_active_params()
         rep["moe"] = {k: getattr(cfg.moe, k) for k in (
@@ -1714,7 +1734,12 @@ def lm_path(torch, dev, cfg, *, batch=4, prompt=4096, steps=32,
         rep["reduced"] = reduced
     tokens = rep.pop("tokens")
     rep["tokens_row0"] = tokens[0]
-    check(rep["logits_finite"], f"{cfg.name}: logits are not finite")
+    check(tokens == eager["tokens"], f"{cfg.name}: the decode graph's "
+                                     f"tokens differ from the eager loop's")
+    check(rep["decode_captures"] == 1,
+          f"{cfg.name}: {rep['decode_captures']} decode captures")
+    check(rep["logits_finite"] and eager["logits_finite"],
+          f"{cfg.name}: logits are not finite")
     check(len(tokens) == batch and all(
         len(t) == steps and all(0 <= x < cfg.vocab for x in t)
         for t in tokens), f"{cfg.name}: tokens out of range")
@@ -3368,13 +3393,16 @@ def tenant_path(torch, dev, *, nv=4096, cap_a=2 ** 14, n_a=256,
     at ``cap_s`` slots, which overflows, replays solo and migrates to a
     grown class.  ``waves`` waves of one ``chunk``-op chunk per tenant of
     the paper's mix (add_frac 0.7) go through ``apply_chunks``; the launch
-    counts are set to 0 just before and read just after.  Checks: every
+    counts are set to 0 just before and read just after (the scc form's
+    apart).  Checks: every
     tenant's acks, generations, config and final state equal a port
     ``SCCService`` of its own fed the same chunks on the card (that run's
     wall time gives the sequential ops/s); maintained labels equal a
-    static recompute for ``sample`` tenants; the compact tier and a solo
-    replay ran.  Then: host syncs per wave of class A at T = ``n_a``
-    against a ``t_small``-tenant engine on the same traffic; 8 tenants
+    static recompute for ``sample`` tenants and for all of class A; the
+    compact tier and a solo replay ran; on a card the step graphs
+    captured stay within the engine's compile bound.  Then: host syncs
+    per wave of class A at T = ``n_a`` against a ``t_small``-tenant
+    engine on the same traffic, at most 1.5 on a card; 8 tenants
     at ``small_nv`` vertices on the card equal the same on the CPU;
     ``serve_tenants`` at the reference's defaults, plain and durable
     (the card-written stores open equal on the CPU); one
@@ -3387,10 +3415,11 @@ def tenant_path(torch, dev, *, nv=4096, cap_a=2 ** 14, n_a=256,
     from repro_torch import kernels
     from repro_torch.ckpt.durable import DurableService
     from repro_torch.configs import smscc
-    from repro_torch.core import dynamic
+    from repro_torch.core import dynamic, step_graph
     from repro_torch.core import graph_state as gs
     from repro_torch.core.service import SCCService
     from repro_torch.core.sync import SYNCS
+    from repro_torch.kernels.frontier_expand import ops as fops
     from repro_torch.launch import chaos, serve
     from repro_torch.launch.replica import states_equal
     from repro_torch.tenancy import TenantEngine
@@ -3445,9 +3474,12 @@ def tenant_path(torch, dev, *, nv=4096, cap_a=2 ** 14, n_a=256,
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
+    captures = step_graph.captures
     acks, walls, syncs = run_waves(eng, tids)
     rep["launches"] = kernels.launch_counts()
     rep["lane_launches"] = kernels.lane_launch_counts()
+    rep["scc_launches"] = fops.frontier_min.scc_launches
+    rep["step_graph_captures"] = step_graph.captures - captures
     if cuda:
         rep["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
     st = eng.stats()
@@ -3469,6 +3501,10 @@ def tenant_path(torch, dev, *, nv=4096, cap_a=2 ** 14, n_a=256,
     check(eng.tenant_cfg("s0").edge_capacity > cap_s,
           "the undersized tenant did not grow")
     check(st["compile_count"] <= st["compile_bound"], "registry bound")
+    if cuda:  # the lane graphs, and the solo replays' step graphs
+        check(0 < rep["step_graph_captures"] <= st["compile_bound"],
+              f"{rep['step_graph_captures']} step graph captures, bound "
+              f"{st['compile_bound']}")
 
     # the oracle: one port SCCService per tenant, the same chunks
     t0 = time.perf_counter()
@@ -3494,7 +3530,20 @@ def tenant_path(torch, dev, *, nv=4096, cap_a=2 ** 14, n_a=256,
         state, cfg = eng.tenant_state(tid), eng.tenant_cfg(tid)
         check(torch.equal(dynamic.recompute(state, cfg).ccid, state.ccid),
               f"{tid}: maintained labels differ from a static recompute")
-    del eng
+    # every class-A tenant: one lane-batched static recompute for each
+    # config they hold now (a tenant that overflowed has grown)
+    by_cfg = {}
+    for i in range(n_a):
+        by_cfg.setdefault(eng.tenant_cfg(f"a{i}"), []).append(
+            eng.tenant_state(f"a{i}"))
+    for cfg, states in by_cfg.items():
+        lanes = gs.stack(states)
+        check(torch.equal(dynamic.recompute(lanes, cfg).ccid, lanes.ccid),
+              f"class A at {cfg.edge_capacity} slots: maintained labels "
+              f"differ from a static recompute")
+    rep["class_a_recompute_equal"] = {c.edge_capacity: len(v)
+                                      for c, v in by_cfg.items()}
+    del eng, by_cfg, lanes
 
     # host syncs against T: class A alone at t_small tenants
     small = [f"a{i}" for i in range(t_small)]
@@ -3506,6 +3555,10 @@ def tenant_path(torch, dev, *, nv=4096, cap_a=2 ** 14, n_a=256,
     check(per_wave_big <= 2 * per_wave_small,
           f"host syncs per wave grew with T: {per_wave_big} at T={n_a} vs "
           f"{per_wave_small} at T={t_small}")
+    if cuda:  # the flush's one transfer; the lane step reads nothing
+        check(max(per_wave_big, per_wave_small) <= 1.5,
+              f"class A: {per_wave_big} / {per_wave_small} host syncs a "
+              f"wave at T={n_a} / {t_small}, more than 1.5")
 
     # card against CPU: 8 tenants at small_nv vertices
     scfg = smscc.config(n_vertices=small_nv, edge_capacity=4 * small_nv)
@@ -3731,8 +3784,7 @@ def main() -> int:
              {"n_layers": "94 -> 4: 235093610496 parameters (470 GB in "
                           "bf16) do not fit one 80 GB card; width, "
                           "experts and heads are full"})):
-        rep = lm_path(torch, dev, cfg, steps=16, graph_reps=4,
-                      reduced=reduced)
+        rep = lm_path(torch, dev, cfg, steps=16, reduced=reduced)
         emit("moe_lm_path", **rep)
         moe_reps[tag] = rep
         torch.cuda.empty_cache()

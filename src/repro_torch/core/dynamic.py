@@ -27,10 +27,17 @@ that per-decision step on the card too, as the graph is held to it.
 a leading tenant axis (the JAX package's ``jax.vmap`` of the scan, as its
 tenancy engine runs it): states with [T, ...] leaves, op batches [T, B] /
 [T, K, B].  Phases 1-4 run once for all lanes (the edge table's kernels
-take the lanes as rows); the repair gate and the region sizes come back
-as [T] in one read each; the lanes that need a repair are grouped by
-(tier, edge bucket) and each group runs its tier over its rows at once.
-Every lane's result is its solo step's, bit for bit.
+take the lanes as rows).  On the card the lane step is one replay of a
+graph captured once per (cfg, bucket, lane count, card), every decision
+made on the card as ``jax.vmap`` makes the reference's conds selects:
+an IF node on "any lane needs a repair", then one per repair branch on
+"any lane chose it", running that tier over all lanes with each region
+masked to the lanes that chose it.  Eagerly (CPU tensors, DTensors,
+:func:`apply_batch_stats_lanes_eager`) the repair gate and the region
+sizes come back as [T] in one read each, and the lanes that need a
+repair are grouped by (tier, edge bucket), each group running its tier
+over its rows at once.  Every lane's result is its solo step's, bit for
+bit.
 """
 from __future__ import annotations
 
@@ -260,7 +267,9 @@ def _repair(cfg, src, dst, live, v_alive, ccid, m_del, straddle, u, v,
             graph):
     """Phase 5: (ccid, stats int32[3]: tier, region_v, region_e).  With
     ``graph`` (a step-graph capture) every branch is an IF node decided on
-    the card; without, each decision is read back to the host."""
+    the card (``graph.cond(pred, body)`` runs ``body`` where the bool
+    scalar ``pred`` holds); without, each decision is read back to the
+    host."""
     def repair():
         region, rv, re = _region(cfg, src, dst, live, v_alive, m_del,
                                  straddle, u, v)
@@ -276,10 +285,11 @@ def _repair(cfg, src, dst, live, v_alive, ccid, m_del, straddle, u, v,
             lab = torch.full_like(ccid, INT32_MAX)
             tier_t = torch.zeros((), dtype=torch.int32, device=ccid.device)
             for i, (tier, bucket) in enumerate(branches(cfg)):
-                with graph.if_node(code == i):
+                def branch(tier=tier, bucket=bucket):
                     lab.copy_(_tier_labels(cfg, tier, bucket, src, dst,
                                            live, region))
                     tier_t.fill_(tier)
+                graph.cond(code == i, branch)
         return torch.where(region, lab, ccid), torch.stack([tier_t, rv, re])
 
     if not cfg.repair_gate:
@@ -290,10 +300,12 @@ def _repair(cfg, src, dst, live, v_alive, ccid, m_del, straddle, u, v,
     if graph is None:
         return repair() if SYNCS.bool(need) else (ccid, _skipped(ccid))
     out_ccid, out_stats = ccid.clone(), _skipped(ccid)
-    with graph.if_node(need):
+
+    def gated():
         new_ccid, stats = repair()
         out_ccid.copy_(new_ccid)
         out_stats.copy_(stats)
+    graph.cond(need, gated)
     return out_ccid, out_stats
 
 
@@ -423,85 +435,149 @@ def _rows(x, idx):
     return x if idx is None else x.index_select(0, idx)
 
 
-def _repair_lanes(cfg, rows, src, dst, live, v_alive, m_del, straddle, u, v,
-                  ccid):
-    """Phase 5 for the lanes ``rows`` (host list) of the step: returns
-    (ccid [T, NV] with those lanes repaired, {row: RepairStats})."""
+def _region_lanes(cfg, src, dst, live, v_alive, m_del, straddle, u, v):
+    """Per lane: the affected region bool[T, NV] and its sizes int32[T]
+    (vertices, live edges inside)."""
     nv = cfg.n_vertices
-    dev = ccid.device
-    idx = None if len(rows) == ccid.shape[0] else torch.tensor(
-        rows, dtype=torch.long, device=dev)
-    s_src, s_dst, s_live, s_alive = (_rows(x, idx) for x in
-                                     (src, dst, live, v_alive))
-    seed_f = _junk_set_lanes(nv, _rows(v, idx), _rows(straddle, idx))
-    seed_b = _junk_set_lanes(nv, _rows(u, idx), _rows(straddle, idx))
+    seed_f = _junk_set_lanes(nv, v, straddle)
+    seed_b = _junk_set_lanes(nv, u, straddle)
     if cfg.fuse_fwbw:
         fw, bw, _ = reach.fused_fw_bw_reach(
-            s_src, s_dst, s_live, seed_f, seed_b, s_alive, cfg.max_inner,
+            src, dst, live, seed_f, seed_b, v_alive, cfg.max_inner,
             impl=cfg.sparse_impl)
     else:
-        fw, _ = reach.forward_reach(s_src, s_dst, s_live, seed_f, s_alive,
+        fw, _ = reach.forward_reach(src, dst, live, seed_f, v_alive,
                                     cfg.max_inner, impl=cfg.sparse_impl)
-        bw, _ = reach.backward_reach(s_src, s_dst, s_live, seed_b, s_alive,
+        bw, _ = reach.backward_reach(src, dst, live, seed_b, v_alive,
                                      cfg.max_inner, impl=cfg.sparse_impl)
-    region = (_rows(m_del, idx) | (fw & bw)) & s_alive
+    region = (m_del | (fw & bw)) & v_alive
     take = reach.take
-    region_v, region_e = SYNCS.numpy(torch.stack([
-        region.sum(1),
-        (s_live & take(region, s_src) & take(region, s_dst)).sum(1)
-    ])).tolist()
-
-    groups: dict = {}
-    stats = {}
-    for j, row in enumerate(rows):
-        tier, bucket = _tier_of(cfg, region_v[j], region_e[j])
-        groups.setdefault((tier, bucket), []).append(j)
-        stats[row] = RepairStats(tier, region_v[j], region_e[j])
-    s_ccid = _rows(ccid, idx)
-    new = s_ccid.clone()
-    for (tier, bucket), pos in groups.items():
-        g = None if len(pos) == len(rows) else torch.tensor(
-            pos, dtype=torch.long, device=dev)
-        g_src, g_dst, g_live, g_region = (_rows(x, g) for x in
-                                          (s_src, s_dst, s_live, region))
-        if tier == TIER_DENSE:  # lane by lane through bool_matmul
-            def matmul(a, bm):
-                return reach_blockmm.bool_matmul(
-                    a, bm, impl=cfg.dense_matmul_impl)
-            lab = torch.stack([scc.scc_dense_region(
-                g_src[i], g_dst[i], g_live[i], g_region[i],
-                cfg.dense_capacity, matmul=matmul)[0]
-                for i in range(g_region.shape[0])])
-        elif tier == TIER_COMPACT:
-            lab, _ = scc.scc_compact_region(
-                g_src, g_dst, g_live, g_region,
-                cfg.region_vertex_capacity, bucket,
-                max_outer=cfg.max_outer, max_inner=cfg.max_inner,
-                shortcut=cfg.shortcut, impl=cfg.sparse_impl)
-        else:
-            lab = scc.scc_static(g_src, g_dst, g_live, g_region,
-                                 max_outer=cfg.max_outer,
-                                 max_inner=cfg.max_inner,
-                                 shortcut=cfg.shortcut,
-                                 impl=cfg.sparse_impl)
-        fixed = torch.where(g_region, lab, _rows(s_ccid, g))
-        if g is None:
-            new = fixed
-        else:
-            new = new.index_copy(0, g, fixed)
-    return (new if idx is None else ccid.index_copy(0, idx, new)), stats
+    return (region, region.sum(1).int(),
+            (live & take(region, src) & take(region, dst)).sum(1).int())
 
 
-def apply_batch_stats_lanes(states: gs.GraphState, ops: OpBatch,
-                            cfg: gs.GraphConfig):
-    """One SMSCC step for each of T tenant lanes at once: ``states`` has
-    [T, ...] leaves, ``ops`` [T, B] leaves (NOP rows for a lane with
-    nothing to do).  Returns ``(new_states, ok bool[T, B], ovf_delta
-    int32[T], [RepairStats] * T)``, each lane exactly its
-    :func:`apply_batch_stats`."""
+def _tier_labels_lanes(cfg, tier, bucket, src, dst, live, region):
+    """Each lane's region labels through one repair tier, all lanes at
+    once (the dense tier lane by lane)."""
+    if tier == TIER_DENSE:
+        def matmul(a, bm):
+            return reach_blockmm.bool_matmul(a, bm,
+                                             impl=cfg.dense_matmul_impl)
+        return torch.stack([scc.scc_dense_region(
+            src[i], dst[i], live[i], region[i], cfg.dense_capacity,
+            matmul=matmul)[0] for i in range(region.shape[0])])
+    if tier == TIER_COMPACT:
+        return scc.scc_compact_region(
+            src, dst, live, region, cfg.region_vertex_capacity, bucket,
+            max_outer=cfg.max_outer, max_inner=cfg.max_inner,
+            shortcut=cfg.shortcut, impl=cfg.sparse_impl)[0]
+    return scc.scc_static(src, dst, live, region, max_outer=cfg.max_outer,
+                          max_inner=cfg.max_inner, shortcut=cfg.shortcut,
+                          impl=cfg.sparse_impl)
+
+
+def _repair_lanes(cfg, src, dst, live, v_alive, m_del, straddle, u, v,
+                  ccid, graph):
+    """Phase 5 over tenant lanes: (ccid [T, NV], stats int32[T, 3]).
+
+    With ``graph`` (a step-graph capture) everything is decided on the
+    card, as the reference's ``jax.vmap`` turns its ``lax.cond`` /
+    ``lax.switch`` into selects: one IF node on "any lane needs a repair"
+    runs the region over every lane, then one IF node per repair branch
+    on "any lane chose it" runs that tier over all lanes, each lane's
+    region masked to the lanes that chose it (an empty region ends its
+    fixpoints at round 0); a lane that needs no repair keeps its labels
+    and reports a skip.  Without, the gate and the region sizes are read
+    back once each, and the lanes that need a repair are grouped by
+    (tier, edge bucket), each group running its tier over its rows."""
+    if graph is not None:
+        return _repair_lanes_decided(cfg, src, dst, live, v_alive, m_del,
+                                     straddle, u, v, ccid, graph)
+    n_lanes = ccid.shape[0]
+    if cfg.repair_gate:
+        need = SYNCS.numpy(m_del.any(1) | straddle.any(1))
+        rows = need.nonzero()[0].tolist()
+    else:
+        rows = list(range(n_lanes))
+    stats = np.zeros((n_lanes, 3), np.int32)
+    stats[:, 0] = TIER_SKIP
+    if rows:
+        dev = ccid.device
+        idx = None if len(rows) == n_lanes else torch.tensor(
+            rows, dtype=torch.long, device=dev)
+        s_src, s_dst, s_live = (_rows(x, idx) for x in (src, dst, live))
+        region, rv, re = _region_lanes(
+            cfg, s_src, s_dst, s_live,
+            *(_rows(x, idx) for x in (v_alive, m_del, straddle, u, v)))
+        region_v, region_e = SYNCS.numpy(torch.stack([rv, re])).tolist()
+        groups: dict = {}
+        for j, row in enumerate(rows):
+            tier, bucket = _tier_of(cfg, region_v[j], region_e[j])
+            groups.setdefault((tier, bucket), []).append(j)
+            stats[row] = (tier, region_v[j], region_e[j])
+        s_ccid = _rows(ccid, idx)
+        new = s_ccid
+        for (tier, bucket), pos in groups.items():
+            g = None if len(pos) == len(rows) else torch.tensor(
+                pos, dtype=torch.long, device=dev)
+            g_region = _rows(region, g)
+            lab = _tier_labels_lanes(cfg, tier, bucket,
+                                     *(_rows(x, g) for x in
+                                       (s_src, s_dst, s_live)), g_region)
+            fixed = torch.where(g_region, lab, _rows(s_ccid, g))
+            new = fixed if g is None else new.index_copy(0, g, fixed)
+        ccid = new if idx is None else ccid.index_copy(0, idx, new)
+    return ccid, torch.from_numpy(stats).to(ccid.device)
+
+
+def _repair_lanes_decided(cfg, src, dst, live, v_alive, m_del, straddle,
+                          u, v, ccid, graph):
+    """:func:`_repair_lanes` with every decision an IF node of ``graph``
+    (``graph.cond(pred, body)`` runs ``body`` where the bool scalar
+    ``pred`` holds)."""
+    n_lanes = ccid.shape[0]
+    out_ccid = ccid.clone()
+    out_stats = torch.zeros((n_lanes, 3), dtype=torch.int32,
+                            device=ccid.device)
+    out_stats[:, 0].fill_(TIER_SKIP)
+    if cfg.repair_gate:
+        need = m_del.any(1) | straddle.any(1)
+    else:
+        need = torch.ones(n_lanes, dtype=torch.bool, device=ccid.device)
+
+    def repair():
+        # a lane that needs no repair has an empty region (no seed, no
+        # deletion-affected vertex): its labels pass through unchanged
+        region, rv, re = _region_lanes(cfg, src, dst, live, v_alive, m_del,
+                                       straddle, u, v)
+        code = torch.where(need, tier_code(cfg, rv, re), -1)
+        lab = torch.full_like(ccid, INT32_MAX)
+        tier = torch.full_like(code, TIER_SKIP)
+        for i, (t, bucket) in enumerate(branches(cfg)):
+            chose = code == i
+            tier = torch.where(chose, t, tier)
+
+            def branch(chose=chose, t=t, bucket=bucket):
+                got = _tier_labels_lanes(cfg, t, bucket, src, dst, live,
+                                         region & chose[:, None])
+                lab.copy_(torch.where(chose[:, None], got, lab))
+            graph.cond(chose.any(), branch)
+        out_ccid.copy_(torch.where(region, lab, ccid))
+        out_stats.copy_(torch.stack([tier, rv, re], 1))
+
+    if cfg.repair_gate:
+        graph.cond(need.any(), repair)
+    else:
+        repair()
+    return out_ccid, out_stats
+
+
+def _phases_1_4_lanes(states: gs.GraphState, kind, u, v,
+                      cfg: gs.GraphConfig):
+    """The structural phases over tenant lanes: (v_alive, ccid, edges, ok,
+    ovf, m_del, straddle), each with a leading [T] axis."""
     nv = cfg.n_vertices
     dev = states.device
-    kind, u, v = (t.to(dev) for t in ops)
     n_lanes, b = kind.shape
     vid = torch.arange(nv, dtype=torch.int32, device=dev)
     uc, vc = u.clamp(0, nv - 1).long(), v.clamp(0, nv - 1).long()
@@ -555,43 +631,87 @@ def apply_batch_stats_lanes(states: gs.GraphState, ops: OpBatch,
     ok = ok | inserted
     ovf = dropped.sum(1).int()
 
-    # ---- Phase 5: localized repair, for the lanes that need one -----------
-    src, dst, live = edges.src, edges.dst, edges.state == et.LIVE
     m_del = v_alive & affected_rep.gather(1, ccid.clamp(max=nv).long())
     straddle = inserted & (ccid.gather(1, uc) != ccid.gather(1, vc))
-    if cfg.repair_gate:
-        need = SYNCS.numpy(m_del.any(1) | straddle.any(1))
-        rows = need.nonzero()[0].tolist()
-    else:
-        rows = list(range(n_lanes))
-    repair = [gs.repair_skipped()] * n_lanes
-    if rows:
-        ccid, fixed = _repair_lanes(cfg, rows, src, dst, live, v_alive,
-                                    m_del, straddle, u, v, ccid)
-        for row, st in fixed.items():
-            repair[row] = st
+    return v_alive, ccid, edges, ok, ovf, m_del, straddle
 
+
+def _step_lanes(states: gs.GraphState, ops: OpBatch, cfg: gs.GraphConfig,
+                graph=None):
+    """One step for each of T lanes: ``(new_states, ok bool[T, B], ovf
+    int32[T], stats int32[T, 3])``.  ``graph``: the lane step graph being
+    captured, else None (the decisions read back)."""
+    nv = cfg.n_vertices
+    kind, u, v = (t.to(states.device) for t in ops)
+    v_alive, ccid, edges, ok, ovf, m_del, straddle = _phases_1_4_lanes(
+        states, kind, u, v, cfg)
+    src, dst, live = edges.src, edges.dst, edges.state == et.LIVE
+    ccid, stats = _repair_lanes(cfg, src, dst, live, v_alive, m_del,
+                                straddle, u, v, ccid, graph)
     ccid = torch.where(v_alive, ccid, nv)
     new_states = gs.recount_ccs(gs.GraphState(
         v_alive=v_alive, ccid=ccid, edges=edges, n_ccs=states.n_ccs,
         gen=states.gen + 1, overflow=states.overflow + ovf))
-    return new_states, ok, ovf, repair
+    return new_states, ok, ovf, stats
+
+
+def apply_batch_stats_lanes(states: gs.GraphState, ops: OpBatch,
+                            cfg: gs.GraphConfig):
+    """One SMSCC step for each of T tenant lanes at once: ``states`` has
+    [T, ...] leaves, ``ops`` [T, B] leaves (NOP rows for a lane with
+    nothing to do).  Returns ``(new_states, ok bool[T, B], ovf_delta
+    int32[T], RepairStats of int32[T] tensors)``, each lane exactly its
+    :func:`apply_batch_stats`; on the card one replay of the lane step
+    graph, with nothing read back."""
+    if step_graph.graphable(states):
+        new, ok, ovf, stats = step_graph.run(
+            states, OpBatch(*(x.unsqueeze(1) for x in ops)), cfg,
+            _step_lanes)
+        return new, ok[:, 0], ovf[:, 0], _stats(stats[:, 0])
+    return apply_batch_stats_lanes_eager(states, ops, cfg)
+
+
+def apply_batch_stats_lanes_eager(states: gs.GraphState, ops: OpBatch,
+                                  cfg: gs.GraphConfig):
+    """:func:`apply_batch_stats_lanes` with the gate and the region sizes
+    read back to the host: the plain path of CPU tensors and DTensors,
+    and on the card the per-decision lane step the graph is held to."""
+    new, ok, ovf, stats = _step_lanes(states, ops, cfg)
+    return new, ok, ovf, _stats(stats)
+
+
+def _pad_lanes(ops: OpBatch, lanes: int) -> OpBatch:
+    """``ops`` ([T, K, B] leaves) with NOP rows up to ``lanes``."""
+    n = ops.kind.shape[0]
+    if lanes <= n:
+        return ops
+    return OpBatch(*(torch.cat([torch.as_tensor(x), torch.full(
+        (lanes - n, *x.shape[1:]), fill, dtype=torch.int32,
+        device=torch.as_tensor(x).device)]) for x, fill in
+        zip(ops, (NOP, 0, 0))))
 
 
 def apply_batch_scan_lanes(states: gs.GraphState, ops: OpBatch,
-                           cfg: gs.GraphConfig):
+                           cfg: gs.GraphConfig, lanes: int | None = None):
     """K stacked chunks per lane (``int32[T, K, B]`` leaves) through the
     lane step in order: the JAX package's ``jax.vmap`` of its scan.
     Returns ``(new_states, ok bool[T, K, B], ovf_delta int32[T, K],
-    RepairStats of int32[T, K] numpy arrays)``."""
+    RepairStats of int32[T, K] tensors)``.  On the card K replays of the
+    lane step graph of (cfg, B, ``lanes``, card), the T lanes in its
+    first rows and NOP rows after them, and nothing read back; ``lanes``
+    (default T) is the dispatch's registered tenant batch, so one graph
+    serves every T up to it."""
+    if step_graph.graphable(states):
+        n = states.v_alive.shape[0]
+        new, ok, ovf, stats = step_graph.run(
+            states, _pad_lanes(ops, lanes or n), cfg, _step_lanes)
+        return new, ok, ovf, _stats(stats)
     oks, ovfs, reps = [], [], []
     for k in range(ops.kind.shape[1]):
-        states, ok, ovf, rep = apply_batch_stats_lanes(
+        states, ok, ovf, rep = _step_lanes(
             states, OpBatch(*(x[:, k].contiguous() for x in ops)), cfg)
         oks.append(ok)
         ovfs.append(ovf)
         reps.append(rep)
-    stats = np.asarray([[tuple(r) for r in col] for col in reps],
-                       np.int32).reshape(len(reps), -1, 3).transpose(1, 0, 2)
     return (states, torch.stack(oks, 1), torch.stack(ovfs, 1),
-            RepairStats(*(stats[..., i] for i in range(3))))
+            _stats(torch.stack(reps, 1)))

@@ -28,17 +28,12 @@ TIER_NAMES = ("dense", "compact", "full", "skipped")
 
 
 class RepairStats(NamedTuple):
-    """Per-step repair telemetry: int32 tensors on the state's device from
-    the single-graph step (0-d a step, [K] from the scan entry), read back
-    with the step's other outputs; host ints (numpy [T, K] from the lane
-    scan) from the lane step, whose tier dispatch reads them."""
+    """Per-step repair telemetry: int32 tensors on the state's device (0-d
+    a step, [K] from the scan entry, [T] / [T, K] over tenant lanes), read
+    back with the step's other outputs."""
     tier: int
     region_vertices: int
     region_edges: int
-
-
-def repair_skipped() -> RepairStats:
-    return RepairStats(tier=TIER_SKIP, region_vertices=0, region_edges=0)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -48,7 +48,8 @@ def reset_launch_counts() -> None:
     for fns in _wrappers().values():
         for fn in fns:
             fn.launches = 0
-            for attr in ("lane_launches", "fixpoint_launches"):
+            for attr in ("lane_launches", "fixpoint_launches",
+                         "scc_launches"):
                 if hasattr(fn, attr):
                     setattr(fn, attr, 0)
     fops.reset_fixpoint_rounds()

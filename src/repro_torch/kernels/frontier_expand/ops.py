@@ -18,7 +18,8 @@ and count on ``frontier_min.launches``:
   launches also count on ``frontier_min.fixpoint_launches``, and the
   rounds it ran on the card add up by form in a device counter
   (:func:`fixpoint_rounds`).  Its ``scc`` form runs the whole static SCC
-  of ``core/scc.py`` (the outer loop, trim and both sweeps) in one launch.
+  of ``core/scc.py`` (the outer loop, trim and both sweeps) in one launch,
+  counted apart too, on ``frontier_min.scc_launches``.
 
 Unlike the TPU wrapper there is no size ceiling: the scatter reads each
 edge once whatever NV is.
@@ -90,6 +91,7 @@ def frontier_min(dst: torch.Tensor, msg: torch.Tensor, nv: int, *,
 frontier_min.launches = 0
 frontier_min.lane_launches = 0
 frontier_min.fixpoint_launches = 0
+frontier_min.scc_launches = 0
 
 
 def frontier_gather(src: torch.Tensor, dst: torch.Tensor, live: torch.Tensor,
@@ -323,9 +325,10 @@ def frontier_fixpoint(form: str, src: torch.Tensor, dst: torch.Tensor,
     return work, rounds if lanes else rounds[0]
 
 
-def _count_fixpoint(lanes: bool) -> None:
+def _count_fixpoint(lanes: bool, scc: bool = False) -> None:
     _build.count(frontier_min, "launches", "fixpoint_launches",
-                 *(("lane_launches",) if lanes else ()))
+                 *(("lane_launches",) if lanes else ()),
+                 *(("scc_launches",) if scc else ()))
 
 
 def _scc_launch(src, dst, live, active, t, nd, max_inner, max_outer,
@@ -357,5 +360,5 @@ def _scc_launch(src, dst, live, active, t, nd, max_inner, max_outer,
         tally.data_ptr(), work.data_ptr(), t, src.shape[-1], 1, nv,
         ref.FORMS.index("scc"), int(shortcut), max(max_inner, 0),
         max(max_outer, 0), _build.stream_ptr(ccid)), "frontier_fixpoint")
-    _count_fixpoint(nd == 2)
+    _count_fixpoint(nd == 2, scc=True)
     return ccid, rounds if nd == 2 else rounds[0]

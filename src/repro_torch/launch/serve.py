@@ -25,7 +25,8 @@ readers from N replicas tailing its log; ``--tenants N`` serves N
 independent graphs behind one lane-batched engine and admission queue
 (with ``--dir D``, each tenant durable under ``D/tenants``).  An LM arch
 (dense or MoE): the arch's smoke config with random weights serves one
-batch of prompts, prefill then greedy decode.  ``--arch mind``: MIND's
+batch of prompts, prefill then greedy decode (on a card one replay of a
+captured decode step a token).  ``--arch mind``: MIND's
 smoke config scores ``--steps`` requests of 32 users x 512 candidates.
 Runs on ``cuda`` unless ``--device`` says otherwise.
 """
@@ -173,30 +174,95 @@ def _sync(device: torch.device) -> None:
     step_graph.synchronize(device)
 
 
+TOKEN_RING = 64  # decode steps between copies of the graph's tokens out
+decode_captures = 0  # decode graphs captured (the reference's compiles)
+
+
+class DecodeGraph(step_graph.Captured):
+    """Greedy decode of ``params`` against ``cache``: one replay of a
+    captured CUDA graph a token, as the reference jits one decode step.
+
+    Captured once per serving run, i.e. per (cfg, batch, cache_len, card),
+    through ``step_graph.capture`` (the capture lock, the port's own
+    streams).  Its inputs are the cache's k/v buffers, written in place,
+    and buffers of its own: the position (an int64 on the card), the
+    current token, and a ring of :data:`TOKEN_RING` token columns with a
+    column counter on the card (``tf.greedy_step``).  ``logits`` is the
+    last replay's output."""
+
+    def __init__(self, params, cache: Dict, tok: torch.Tensor,
+                 cfg: tf.LMConfig):
+        global decode_captures
+        dev = tok.device
+        self.params, self.cache = params, cache  # what the replays read
+        self.pos = torch.full((), cache["pos"], dtype=torch.int64,
+                              device=dev)
+        self.tok = tok.to(torch.int32).clone()
+        self.ring = torch.zeros((tok.shape[0], TOKEN_RING),
+                                dtype=torch.int32, device=dev)
+        self.col = torch.zeros(1, dtype=torch.int64, device=dev)
+
+        def body(cap):
+            self.logits = tf.greedy_step(params, cache, self.pos, self.tok,
+                                         self.ring, self.col, cfg)
+        super().__init__(dev, body)
+        decode_captures += 1
+
+    def run(self, steps: int, out: torch.Tensor) -> float:
+        """``steps`` replays: ``out[:, i]`` (int32 [B, steps] on the card)
+        gets step i's input token, and the cache's 'pos' moves on by
+        ``steps``.  Nothing is read back.  Returns the host's seconds in
+        the replay calls."""
+        host_s = 0.0
+        with self.lock:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(self.done)
+            for k0 in range(0, steps, TOKEN_RING):
+                kk = min(TOKEN_RING, steps - k0)
+                self.col.zero_()
+                for _ in range(kk):
+                    t0 = time.perf_counter()
+                    self.graph.replay()
+                    host_s += time.perf_counter() - t0
+                out[:, k0:k0 + kk].copy_(self.ring[:, :kk])
+            self.done.record(stream)
+        self.cache["pos"] += steps
+        return host_s
+
+
 def serve_lm(cfg: tf.LMConfig, steps: int = 32, *, batch: int = 4,
              prompt_len: int = 12, cache_len: int = 64,
              device: str = gs.DEFAULT_DEVICE, seed: int = 0,
-             graph_reps: int = 0) -> Dict:
+             decode: str = "auto") -> Dict:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens: one
     prefill into a ``cache_len`` cache, then ``steps`` greedy decode
     steps.  Weights are random, drawn on ``device`` from a generator seeded
     with ``seed``; so are the prompts, from numpy.
 
-    Returns a report: seconds and tokens/s of prefill (prompt tokens) and
-    of decode (generated tokens), the host's seconds per decode step (the
-    time to issue a step; the loop never waits on the device), peak device
-    bytes (None on the CPU), whether the last logits are finite, and the
-    greedy tokens [batch][steps].
+    ``decode``: ``"graph"`` (the default on a card, ``"auto"``) captures
+    the decode step once (:class:`DecodeGraph`) and replays it a token,
+    reading the tokens back once at the end; ``"eager"`` (the default on
+    the CPU) issues every op of every step from Python, the path the graph
+    is held to.  A graph needs a card: ``"graph"`` elsewhere raises.
 
-    With ``graph_reps`` > 0 on a card, one more decode step is captured in
-    a CUDA graph after the timed loop and replayed ``graph_reps`` times
-    between CUDA events: ``device_s_per_decode_step`` is the device's time
-    for a step with the host's issue cost gone, and
-    ``decode_device_share`` that time over the loop's step time (near 1:
-    the device bounds decode; far below 1: the host does).  The extra step
-    writes the cache's last slot, as a step past the cache does.
+    Returns a report: seconds and tokens/s of prefill (prompt tokens) and
+    of decode (generated tokens; the graph's capture apart, in
+    ``decode_capture_s``), the host's seconds per decode step (the time to
+    issue a step: the replay call, or the eager step's ops), peak device
+    bytes (None on the CPU), whether the last logits are finite, and the
+    greedy tokens [batch][steps].  Through the graph,
+    ``device_s_per_decode_step`` is the card's time a step, from CUDA
+    events around the replays, and ``decode_device_share`` that time over
+    the decode wall (near 1: the card bounds decode); None when eager.
     """
     dev = torch.device(device)
+    if decode == "auto":
+        decode = "graph" if dev.type == "cuda" else "eager"
+    if decode not in ("graph", "eager"):
+        raise ValueError(f"decode {decode!r} is not 'auto', 'graph' or "
+                         f"'eager'")
+    if decode == "graph" and dev.type != "cuda":
+        raise ValueError("a decode graph needs a CUDA card")
     t0 = time.perf_counter()
     params = tf.init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     rng = np.random.default_rng(seed)
@@ -213,29 +279,48 @@ def serve_lm(cfg: tf.LMConfig, steps: int = 32, *, batch: int = 4,
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
-    out, host_s = [], 0.0
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        t_step = time.perf_counter()
-        out.append(tok)
-        logits, cache = tf.decode_step(params, cache, tok, cfg)
-        tok = logits.argmax(-1).to(torch.int32)
-        host_s += time.perf_counter() - t_step
-    _sync(dev)
-    decode_s = time.perf_counter() - t0
-    tokens = (torch.stack(out, 1).cpu().tolist() if out
-              else [[] for _ in range(batch)])
+    capture_s = device_step_s = None
+    if decode == "graph" and steps:
+        t0 = time.perf_counter()
+        graph = DecodeGraph(params, cache, tok, cfg)
+        _sync(dev)
+        capture_s = time.perf_counter() - t0
+        out = torch.empty((batch, steps), dtype=torch.int32, device=dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        host_s = graph.run(steps, out)
+        end.record()
+        _sync(dev)
+        decode_s = time.perf_counter() - t0
+        device_step_s = start.elapsed_time(end) / steps / 1e3
+        logits = graph.logits
+        tokens = out.cpu().tolist()
+    else:
+        seq, host_s = [], 0.0
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            t_step = time.perf_counter()
+            seq.append(tok)
+            logits, cache = tf.decode_step(params, cache, tok, cfg)
+            tok = logits.argmax(-1).to(torch.int32)
+            host_s += time.perf_counter() - t_step
+        _sync(dev)
+        decode_s = time.perf_counter() - t0
+        tokens = (torch.stack(seq, 1).cpu().tolist() if seq
+                  else [[] for _ in range(batch)])
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else None)
-    device_step_s = (_graph_step_s(params, cache, tok, cfg, graph_reps)
-                     if graph_reps > 0 and dev.type == "cuda" else None)
     return {
         "arch": cfg.name, "device": str(dev), "dtype": str(cfg.dtype),
         "attn_impl": cfg.attn_impl, "n_layers": cfg.n_layers,
         "n_params": cfg.n_params(), "batch": batch,
         "prompt_len": prompt_len, "cache_len": cache_len, "steps": steps,
+        "decode": decode,
         "init_s": init_s, "prefill_s": prefill_s,
         "prompt_tok_per_s": batch * prompt_len / prefill_s,
+        "decode_capture_s": capture_s,
         "decode_s": decode_s,
         "decode_tok_per_s": batch * steps / decode_s if steps else None,
         "host_s_per_decode_step": host_s / steps if steps else None,
@@ -246,34 +331,6 @@ def serve_lm(cfg: tf.LMConfig, steps: int = 32, *, batch: int = 4,
         "logits_finite": bool(torch.isfinite(logits).all()),
         "tokens": tokens,
     }
-
-
-def _graph_step_s(params, cache, tok, cfg: tf.LMConfig, reps: int) -> float:
-    """Device seconds of one decode step: the step captured in a CUDA graph
-    (after one warm-up step on a side stream) and replayed ``reps`` times
-    between CUDA events."""
-    def step():  # as the serving loop's step: decode, then greedy pick
-        tf.decode_step(params, cache, tok, cfg)[0].argmax(-1).to(torch.int32)
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        step()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        step()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / reps / 1e3
 
 
 def serve_mind(cfg: mind.MINDConfig, steps: int = 4, *, batch: int = 32,

@@ -158,11 +158,13 @@ def _dispatch(params: Params, x: torch.Tensor, cfg: MoEConfig):
     spec = _buffer_spec(cfg.expert_spec)
     ye = constrain(_expert_ffn(params, constrain(
         xe[:n_rows].view(e, g * c, d), spec)), spec).view(n_rows, d)
-    # the reference weighs in x's dtype; its combine sums in one product
+    # the reference weighs in x's dtype; its combine sums in one product.
+    # A token's k pairs are rows tok*k .. tok*k+k-1: summed in that order
+    # (an index_add_ on the card adds with atomics, in another order each
+    # run, so two runs' bf16 outputs could differ)
     w = (top_w.reshape(-1) * keep).to(x.dtype).float()
     contrib = ye[torch.where(keep, row, 0)].float() * w[:, None]
-    y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
-    y.index_add_(0, tok, contrib)
+    y = contrib.view(t, k, d).sum(1)
     return y.to(x.dtype), aux
 
 

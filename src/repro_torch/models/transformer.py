@@ -11,7 +11,10 @@ axis; weights keep the reference's ``x @ W`` ([in, out]) layout.
 
 Entry points: ``loss_fn`` (teacher-forced next-token CE plus the MoE aux
 loss, for training), ``prefill`` (build the KV cache, return the last
-logits) and ``decode_step`` (one token against the cache).  Attention is
+logits) and ``decode_step`` (one token against the cache);
+``decode_step_at`` / ``greedy_step`` are that step with the position,
+the cache slot and the greedy pick on the card, which the LM server
+captures in a CUDA graph (``launch/serve.py``).  Attention is
 ``xla`` (the materialized scores), ``chunked`` (an online softmax over KV
 chunks, which training uses, as the reference's train step does) or
 ``flash``: the flash kernel, under the reference's condition (no KV
@@ -373,28 +376,73 @@ def decode_step(params: Params, cache: Dict, tok: torch.Tensor,
     the reference's ``dynamic_update_slice`` clamps its start index the
     same way once ``pos`` passes the cache.
     """
+    pos = cache["pos"]
+    slot = min(pos, cache["k"].shape[2] - 1)
+    logits = _decode(params, cache, tok, pos, slot, cfg)
+    cache["pos"] = pos + 1
+    return logits, cache
+
+
+def decode_step_at(params: Params, cache: Dict, tok: torch.Tensor,
+                   pos: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """:func:`decode_step` with the position a 0-d int64 tensor on the
+    cache's device, as the reference's ``cache["pos"]`` is an int32 on
+    its device: the slot is ``pos`` clamped to the cache on the card, the
+    k/v writes go through ``index_copy_`` at that device index, and
+    ``pos`` is advanced in place.  No host value enters the step, so a
+    CUDA graph can capture it.  ``cache["pos"]`` is left as it was.
+    Returns the logits f32[B,V]."""
+    slot = pos.clamp(max=cache["k"].shape[2] - 1).view(1)
+    logits = _decode(params, cache, tok, pos, slot, cfg)
+    pos.add_(1)
+    return logits
+
+
+def greedy_step(params: Params, cache: Dict, pos: torch.Tensor,
+                tok: torch.Tensor, out: torch.Tensor, col: torch.Tensor,
+                cfg: LMConfig) -> torch.Tensor:
+    """One greedy decode step in place, every index on the card: ``out[:,
+    col] = tok`` (``out`` int32[B, W], ``col`` int64[1]), the logits of
+    ``tok`` at ``pos`` (:func:`decode_step_at`), then ``tok`` <- their
+    argmax and ``col`` += 1.  Returns the logits: the body of the LM
+    server's captured decode step."""
+    out.index_copy_(1, col, tok.unsqueeze(1))
+    logits = decode_step_at(params, cache, tok, pos, cfg)
+    tok.copy_(logits.argmax(-1))
+    col.add_(1)
+    return logits
+
+
+def _decode(params: Params, cache: Dict, tok: torch.Tensor, pos, slot,
+            cfg: LMConfig) -> torch.Tensor:
+    """The decode step's body: ``pos`` and ``slot`` Python ints, or a 0-d
+    and a [1] int64 tensor on the cache's device."""
     b = tok.shape[0]
     cache_len = cache["k"].shape[2]
-    pos = cache["pos"]
     dev = cache["k"].device
-    slot = min(pos, cache_len - 1)
     x = params["embed"][tok.long()[:, None]]  # [B,1,D]
-    positions = torch.full((b, 1), pos, dtype=torch.int64, device=dev)
+    if isinstance(pos, int):
+        positions = torch.full((b, 1), pos, dtype=torch.int64, device=dev)
+    else:
+        positions = pos.expand(b, 1)
     pos_k = torch.arange(cache_len, device=dev)
     # unwritten slots are masked through their key position
     pos_k = torch.where(pos_k <= pos, pos_k, 2 ** 30).expand(b, cache_len)
     for l, (p, window) in enumerate(zip(params["layers"], cfg.windows)):
         x, _, _ = _layer_fwd(cfg, p, x, positions, window,
-                          _cache_writer(cache["k"][l], cache["v"][l], slot,
-                                        pos_k))
+                             _cache_writer(cache["k"][l], cache["v"][l], slot,
+                                           pos_k))
     x = common.rms_norm(x[:, 0], params["ln_f"])
-    cache["pos"] = pos + 1
-    return _logits(cfg, params, x), cache
+    return _logits(cfg, params, x)
 
 
-def _cache_writer(kc, vc, slot: int, pos_k) -> KVOverride:
+def _cache_writer(kc, vc, slot, pos_k) -> KVOverride:
     def kv_override(k_new, v_new):
-        kc[:, slot] = k_new[:, 0]
-        vc[:, slot] = v_new[:, 0]
+        if isinstance(slot, int):
+            kc[:, slot] = k_new[:, 0]
+            vc[:, slot] = v_new[:, 0]
+        else:  # a device index: nothing copied from the host
+            kc.index_copy_(1, slot, k_new)
+            vc.index_copy_(1, slot, v_new)
         return kc, vc, pos_k
     return kv_override

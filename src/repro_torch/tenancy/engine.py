@@ -6,11 +6,13 @@ tenant axis and runs its compiled scan step under ``jax.vmap``.  The port
 stacks the tensors the same way (``graph_state.stack``) and runs
 :func:`repro_torch.core.dynamic.apply_batch_scan_lanes`: phases 1-4 are
 one set of kernel launches for every lane (the edge table's kernels take
-the lanes as rows), every fixpoint is one ``frontier_min`` launch for all
-lanes with no host read (one launch and one read a round on the CPU),
-and the repair gate, the region sizes and the tier choice are one read
-each per step.  T tenants then share
-the host syncs that one solo step pays.
+the lanes as rows) and every fixpoint is one ``frontier_min`` launch for
+all lanes.  On the card a dispatch of K steps is K replays of the lane
+step graph of (cfg, bucket, tenant batch), the repair gate and the tier
+choice decided on the card, so a flush reads the host once: its single
+transfer below, which also carries the lanes' repair tiers.  On the CPU
+the gate and the region sizes are one read each per step, and a fixpoint
+one read a round, shared by all T lanes.
 
 Design rules (all load-bearing for the differential oracle test):
 
@@ -34,13 +36,15 @@ Design rules (all load-bearing for the differential oracle test):
   ``tenant_batches`` sizes and entries are keyed ``(tenant_batch,
   scan_len, bucket, cfg)``; the registry asserts the reference's
   ``tenant_batches x scan_lengths x buckets``-per-config bound on every
-  insertion.  Nothing compiles in the port, so a dispatch is not padded
-  with NOP lanes up to its registered size: the registry keeps the
-  reference's dispatch plan and its bound, not its padding.
+  insertion.  On the card a dispatch replays the lane graph of its
+  registered tenant batch (captured once per (cfg, bucket, tenant
+  batch), within that bound), whose rows past the dispatch's lanes step
+  NOP ops on states the engine never reads; nothing is copied in or out
+  for them.  On the CPU a dispatch runs its own lanes only.
 * **One host transfer per capacity group per flush.**  Every dispatch's
-  ``ok`` / overflow outputs and the compaction probe (per-lane
-  ``fill_stats``) come back to the host together once the group's rounds
-  are issued.
+  ``ok`` / overflow / repair-tier outputs and the compaction probe
+  (per-lane ``fill_stats``) come back to the host together once the
+  group's rounds are issued.
 * **Compaction cadence.**  The oracle checks tombstone pressure after
   every chunk; the engine reads the same per-lane counts in that one
   transfer and compacts over-threshold lanes through the throwaway
@@ -397,7 +401,7 @@ class TenantEngine:
         whole = lanes == list(range(len(group.lanes)))
         cur = group.states if whole else gs.take_lanes(group.states, lanes)
         n_rows = len(works)
-        xfers: List[tuple] = []       # [(ok [n,K,B], ovf [n,K])]
+        xfers: List[tuple] = []       # [(ok [n,K,B], ovf [n,K], tier)]
         # --- rounds of lane-batched dispatches ---------------------------
         while True:
             active = [w for w in works if w.pos < len(w.pieces)]
@@ -418,16 +422,19 @@ class TenantEngine:
                 w.pos += 1
         # --- the flush's single host transfer (compaction probe too) ----
         live, tomb = et.fill_stats(cur.edges)
-        flat = [x.reshape(-1).int() for oks, ovf in xfers
-                for x in (oks, ovf)] + [live, tomb]
+        flat = [x.reshape(-1).int() for xfer in xfers for x in xfer] + \
+            [live, tomb]
         host = SYNCS.numpy(torch.cat(flat))
         host_xfers, at = [], 0
-        for oks, ovf in xfers:
+        for oks, ovf, tier in xfers:
             n_ok, n_ovf = oks.numel(), ovf.numel()
             host_xfers.append((host[at:at + n_ok].reshape(oks.shape) != 0,
                                host[at + n_ok:at + n_ok + n_ovf]
                                .reshape(ovf.shape)))
             at += n_ok + n_ovf
+            for t in host[at:at + tier.numel()]:
+                self.repair_lane_steps[dynamic.TIER_NAMES[int(t)]] += 1
+            at += tier.numel()
         live = host[at:at + n_rows]
         tomb = host[at + n_rows:at + 2 * n_rows]
         # --- per-lane commit / solo replay -------------------------------
@@ -489,16 +496,14 @@ class TenantEngine:
             _, pk[i], pu[i], pv[i] = w.pieces[w.pos]
         ops = dynamic.make_ops(pk, pu, pv)
         new_states, ok, ovf, reps = dynamic.apply_batch_scan_lanes(
-            sub, ops, cfg)
+            sub, ops, cfg, lanes=tb)
         cur = new_states if full else gs.set_lanes(cur, rows, new_states)
         xi = len(xfers)
-        xfers.append((ok, ovf))
+        xfers.append((ok, ovf, reps.tier))  # read in the flush's transfer
         for i, w in enumerate(ws):
             w.refs.append((w.pieces[w.pos][0], xi, i))
         self.dispatches += 1
         self.lane_steps += n * k
-        for tier in reps.tier.reshape(-1):
-            self.repair_lane_steps[dynamic.TIER_NAMES[int(tier)]] += 1
         return cur
 
     def _shadow_service(self, cfg: gs.GraphConfig,

@@ -1426,3 +1426,248 @@ def test_device_waits_beside_captures_in_another_thread(cuda):
         assert torch.equal(got[1].cpu(), want[1].cpu())
         assert int(got[2]) == int(want[2])
         assert [int(a) for a in got[3]] == [int(b) for b in want[3]]
+
+
+def _lane_waves(seed):
+    """tier_stream's built lane wave (its lanes take different branches
+    in one step), then a seeded random wave of the same shape."""
+    import tier_stream
+    k, u, v = tier_stream.lane_wave()
+    r = np.random.default_rng(seed)
+    kind = r.choice([0, 0, 0, 1, 2, 3, 4], k.shape).astype(np.int32)
+    return [(k, u, v), (kind, r.integers(0, 24, k.shape).astype(np.int32),
+                        r.integers(0, 24, k.shape).astype(np.int32))]
+
+
+@pytest.mark.parametrize("lanes", [None, 4])
+def test_lane_graph_matches_eager_lane_step(cuda, lanes, monkeypatch):
+    """The lane step as a captured graph (captured under sync debug
+    "error", so a read back inside it raises; ``lanes`` 4 pads the 3
+    lanes with a NOP row) == the eager per-decision lane step on the card
+    == the CPU, bit for bit, over two waves whose lanes take different
+    branches: state, ok, overflow and per-lane RepairStats; no host read
+    inside a dispatch; the replays count the eager step's launches (the
+    dense tier's, all rows' of each step that ran it); one capture for
+    both waves."""
+    import tier_stream
+    from repro_torch import kernels
+    from repro_torch.core import dynamic, step_graph
+
+    monkeypatch.setattr(step_graph, "SYNC_DEBUG", True)
+    step_graph.clear()
+    cfg = tgs.GraphConfig(**tier_stream.LANE_CONFIG)
+    st = {k: tgs.stack([tgs.all_singletons(cfg, d)] * 3) for k, d in
+          (("graph", cuda), ("eager", cuda), ("cpu", "cpu"))}
+    n = step_graph.captures
+    tiers = set()
+    for w, (k, u, v) in enumerate(_lane_waves(7)):
+        ops = dynamic.make_ops(k, u, v)
+        out, launches = {}, {}
+        for key in st:
+            kernels.reset_launch_counts()
+            s0 = SYNCS.count
+            if key == "eager":  # the per-decision lane step, K times
+                s, parts = st[key], []
+                for j in range(k.shape[1]):
+                    s, *o = dynamic.apply_batch_stats_lanes_eager(
+                        s, dynamic.OpBatch(*(x[:, j] for x in ops)), cfg)
+                    parts.append(o)
+                out[key] = (s, torch.stack([p[0] for p in parts], 1),
+                            torch.stack([p[1] for p in parts], 1),
+                            torch.stack([torch.stack(tuple(p[2]), -1)
+                                         for p in parts], 1))
+            else:
+                s, ok, ovf, rep = dynamic.apply_batch_scan_lanes(
+                    st[key], ops, cfg, lanes=lanes if key == "graph"
+                    else None)
+                out[key] = (s, ok, ovf, torch.stack(tuple(rep), -1))
+            if key == "graph":
+                assert SYNCS.count == s0, f"wave {w}: a host read"
+            launches[key] = kernels.launch_counts()
+            st[key] = out[key][0]
+        g = out["graph"]
+        for key in ("eager", "cpu"):
+            assert _leaves_equal(g[0], out[key][0]), f"{key} wave {w}"
+            for a, b in zip(g[1:], out[key][1:]):
+                assert torch.equal(a.cpu(), b.cpu()), f"{key} wave {w}"
+        tier = g[3][..., 0].cpu()
+        tiers |= set(tier.reshape(-1).tolist())
+        # the dense tier runs lane by lane: the graph's branch over all of
+        # its rows, the eager step over the lanes that chose it
+        dense = tier == dynamic.TIER_DENSE
+        rows = lanes or 3
+        mm = [launches[k].pop("bool_matmul") for k in ("graph", "eager")]
+        assert mm[0] * int(dense.sum()) == \
+            mm[1] * rows * int(dense.any(0).sum()), (w, mm)
+        assert launches["graph"] == launches["eager"], f"wave {w}"
+    assert step_graph.captures == n + 1
+    assert tiers == {dynamic.TIER_DENSE, dynamic.TIER_COMPACT,
+                     dynamic.TIER_FULL, dynamic.TIER_SKIP}
+
+
+def test_tenant_flush_reads_once_and_captures_within_bound(cuda):
+    """A TenantEngine on the card: every flush makes one host read (its
+    transfer) and nothing inside a dispatch; the lane graphs captured stay
+    within the engine's ``compile_bound``; acks, states and repair tiers
+    equal the CPU engine's."""
+    from repro_torch.core import step_graph
+    from repro_torch.tenancy import TenantEngine
+
+    cfg = tgs.GraphConfig(n_vertices=64, edge_capacity=512, max_probes=16,
+                          max_outer=65, max_inner=66,
+                          region_vertex_capacity=32,
+                          region_edge_buckets=(16, 64))
+    step_graph.clear()
+    n = step_graph.captures
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        eng = TenantEngine(buckets=(32,), scan_lengths=(1, 4),
+                           tenant_batches=(1, 4, 8), device=dev)
+        for i in range(6):
+            eng.create_tenant(f"t{i}", cfg)
+        acks, reads = [], []
+        for w in range(5):
+            wave = []
+            for i in range(6 - w % 3):  # 6, 5 and 4 tenants a wave
+                r = np.random.default_rng(100 * w + i)
+                m = 32 * (1 + (i + w) % 4)
+                wave.append((f"t{i}",
+                             r.choice([0, 0, 0, 1, 2, 3], m).astype(np.int32),
+                             r.integers(0, 64, m).astype(np.int32),
+                             r.integers(0, 64, m).astype(np.int32)))
+            s0 = SYNCS.count
+            res = eng.apply_chunks(wave)
+            reads.append(SYNCS.count - s0)
+            acks.append({t: (res[t][0].tolist(), res[t][1]) for t in res})
+        st = eng.stats()
+        runs[dev.type] = (acks, [eng.tenant_state(f"t{i}").ccid.cpu()
+                                 for i in range(6)],
+                          st["repair_lane_steps"])
+        if dev.type == "cuda":
+            assert st["solo_replays"] == 0
+            assert reads == [1] * 5, reads
+            captured = step_graph.captures - n
+            assert 0 < captured <= st["compile_bound"], (
+                captured, st["compile_bound"])
+    assert runs["cuda"][0] == runs["cpu"][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs["cuda"][1],
+                                                 runs["cpu"][1]))
+    assert runs["cuda"][2] == runs["cpu"][2]
+
+
+def _pool_segments():
+    """Reserved segments outside the default pool: graphs' and MemPools'."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return sum(1 for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) != (0, 0))
+
+
+def test_dropped_graphs_free_their_branch_pools(cuda):
+    """Lane graphs captured and dropped (``step_graph.clear``) in this
+    thread while another thread captures step graphs: no capture fails
+    (a dropped graph's branch pool is freed only under the capture lock,
+    since freeing a pool empties it, which the allocator refuses during
+    any capture), and once every graph is gone no segment of theirs stays
+    reserved."""
+    import threading
+
+    import tier_stream
+    from repro_torch.core import dynamic, step_graph
+
+    step_graph.clear()
+    before = _pool_segments()
+    k, u, v = tier_stream.batches()[0]
+    ops = dynamic.make_ops(k, u, v)
+    cfgs = [tgs.GraphConfig(**dict(tier_stream.CONFIG, edge_capacity=c))
+            for c in (128, 256, 512, 1024)]
+    lane_ops = dynamic.make_ops(*tier_stream.lane_wave())
+    errors = []
+
+    def capture():
+        try:
+            for cfg in cfgs:
+                dynamic.apply_batch_stats(tgs.all_singletons(cfg, cuda), ops,
+                                          cfg)
+        except Exception as e:  # raised below, on the test's thread
+            errors.append(e)
+
+    t = threading.Thread(target=capture)
+    t.start()
+    drops = 0
+    while t.is_alive() or drops < 2:
+        cfg = tgs.GraphConfig(**dict(tier_stream.LANE_CONFIG,
+                                     max_outer=25 + drops))
+        dynamic.apply_batch_scan_lanes(
+            tgs.stack([tgs.all_singletons(cfg, cuda)] * 3), lane_ops, cfg)
+        step_graph.clear()
+        drops += 1
+    t.join()
+    assert not errors, errors
+    step_graph.clear()
+    assert _pool_segments() <= before
+
+
+@pytest.mark.parametrize("arch", ["qwen3_14b", "moonshot_v1_16b_a3b"])
+def test_decode_graph_matches_eager_loop(cuda, arch):
+    """``serve_lm`` on the card through the captured decode step (one
+    capture, one replay a token) gives the eager loop's greedy tokens,
+    over steps that run past the cache's end; its device time comes
+    from CUDA events around the replays."""
+    import importlib
+
+    from repro_torch.launch import serve
+
+    cfg = importlib.import_module(f"repro_torch.configs.{arch}") \
+        .smoke_config()
+    kw = dict(batch=2, prompt_len=12, cache_len=16, device="cuda", seed=3)
+    n = serve.decode_captures
+    graph = serve.serve_lm(cfg, 70, decode="graph", **kw)
+    eager = serve.serve_lm(cfg, 70, decode="eager", **kw)
+    assert serve.decode_captures == n + 1
+    assert graph["decode"] == "graph" and eager["decode"] == "eager"
+    assert graph["tokens"] == eager["tokens"]
+    assert graph["logits_finite"]
+    assert graph["device_s_per_decode_step"] > 0
+    assert eager["device_s_per_decode_step"] is None
+
+
+def test_decode_capture_beside_a_waiting_thread(cuda):
+    """Decode graphs captured while another thread keeps the card busy
+    and waits for it through ``step_graph.synchronize``: every wait falls
+    between captures (the card refuses a device-wide wait during one),
+    and every run's tokens equal the eager loop's."""
+    import threading
+
+    from repro_torch.configs import qwen3_14b
+    from repro_torch.core import step_graph
+    from repro_torch.launch import serve
+
+    cfg = qwen3_14b.smoke_config()
+    kw = dict(batch=2, prompt_len=12, cache_len=32, device="cuda")
+    outs, errors = [], []
+
+    def capture():
+        try:
+            for seed in range(4):
+                outs.append(serve.serve_lm(cfg, 8, decode="graph", seed=seed,
+                                           **kw)["tokens"])
+        except Exception as e:  # raised below, on the test's thread
+            errors.append(e)
+
+    x = torch.zeros(1 << 20, device=cuda)
+    waits = 0
+    t = threading.Thread(target=capture)
+    t.start()
+    while t.is_alive():
+        x.add_(1)
+        step_graph.synchronize(cuda)
+        waits += 1
+    t.join()
+    assert not errors, errors
+    assert waits > 0 and len(outs) == 4
+    for seed, got in enumerate(outs):
+        assert got == serve.serve_lm(cfg, 8, decode="eager", seed=seed,
+                                     **kw)["tokens"]

@@ -85,6 +85,62 @@ def test_prefill_and_decode_match_jax(arch, impl):
     assert cache["pos"] == PROMPT + STEPS > CACHE
 
 
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_device_position_decode_matches_jax(arch):
+    """``decode_step_at`` (the position a 0-d tensor, the cache slot and
+    the k/v writes on the tensors' device), run eagerly, == JAX's jitted
+    ``decode_step`` teacher-forced, within 2e-4, through the six steps
+    past the 16-slot cache; it advances ``pos`` in place and leaves the
+    cache's Python 'pos' alone."""
+    _, _, _, fed, want_steps = _jax_run(arch, "xla")
+    cfg, params, toks = _port(arch, "xla")
+    cache, _ = ttf.prefill(params, torch.from_numpy(toks), cfg, CACHE)
+    pos = torch.tensor(cache["pos"])
+    for i, (tok, want) in enumerate(zip(fed, want_steps)):
+        logits = ttf.decode_step_at(params, cache, torch.from_numpy(tok),
+                                    pos, cfg)
+        np.testing.assert_allclose(logits.numpy(), want, **TOL,
+                                   err_msg=f"decode step {i}")
+    assert int(pos) == PROMPT + STEPS > CACHE and cache["pos"] == PROMPT
+
+
+def greedy_runs(cfg, params, toks, steps):
+    """The eager greedy loop through ``decode_step`` and ``steps`` calls
+    of ``greedy_step`` (the decode graph's body) from the same prefill:
+    ((tokens, cache) of each)."""
+    runs = []
+    for form in ("eager", "device"):
+        cache, last = ttf.prefill(params, torch.from_numpy(toks), cfg, CACHE)
+        tok = last.argmax(-1).to(torch.int32)
+        if form == "eager":
+            seq = []
+            for _ in range(steps):
+                seq.append(tok)
+                logits, cache = ttf.decode_step(params, cache, tok, cfg)
+                tok = logits.argmax(-1).to(torch.int32)
+            runs.append((torch.stack(seq, 1), cache))
+        else:
+            pos = torch.tensor(cache["pos"])
+            out = torch.zeros((tok.shape[0], steps), dtype=torch.int32)
+            col = torch.zeros(1, dtype=torch.int64)
+            for _ in range(steps):
+                ttf.greedy_step(params, cache, pos, tok, out, col, cfg)
+            assert int(pos) == cache["pos"] + steps and int(col) == steps
+            runs.append((out, cache))
+    return runs
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_greedy_step_gives_the_eager_loops_tokens(arch):
+    """``greedy_step``, run eagerly, writes the eager loop's greedy tokens
+    and the same cache, bit for bit, through the cache's end."""
+    cfg, params, toks = _port(arch, "xla")
+    (want, wcache), (got, gcache) = greedy_runs(cfg, params, toks, STEPS)
+    assert torch.equal(got, want)
+    assert torch.equal(gcache["k"], wcache["k"])
+    assert torch.equal(gcache["v"], wcache["v"])
+
+
 def test_port_config_matches_jax():
     for arch, (jmod, tmod) in ARCHS.items():
         want = dataclasses.asdict(jmod.smoke_config())
@@ -155,9 +211,12 @@ def test_unported_options_raise():
 def test_serve_lm_on_cpu():
     cfg = qwen3_14b.smoke_config(attn_impl="flash")
     kernels.reset_launch_counts()
-    rep = serve.serve_lm(cfg, 3, device="cpu", graph_reps=2)
+    rep = serve.serve_lm(cfg, 3, device="cpu")
     assert rep["device"] == "cpu" and rep["peak_mem_bytes"] is None
-    assert rep["device_s_per_decode_step"] is None  # a CUDA graph needs a card
+    assert rep["decode"] == "eager"  # a CUDA graph needs a card
+    assert rep["device_s_per_decode_step"] is None
+    with pytest.raises(ValueError, match="card"):
+        serve.serve_lm(cfg, 3, device="cpu", decode="graph")
     assert len(rep["tokens"]) == 4 and len(rep["tokens"][0]) == 3
     # CPU tensors take the plain version
     assert kernels.launch_counts()["flash_attention"] == 0

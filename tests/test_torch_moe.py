@@ -152,6 +152,40 @@ def test_moe_prefill_and_decode_match_jax(arch, impl):
                                    err_msg=f"decode step {i}")
 
 
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_moe_device_position_decode_matches_jax(arch):
+    """The MoE archs through ``decode_step_at`` (the position, the cache
+    slot and the greedy pick on the tensors' device, as the decode graph
+    runs them), eagerly == JAX's decode within 2e-4; ``greedy_step``
+    gives ``decode_step``'s greedy tokens."""
+    tree, toks, _, fed, want_steps = _jax_run(arch, "xla")
+    cfg = carry.lm_config_from_dict(dataclasses.asdict(_jax_cfg(arch, "xla")))
+    params = carry.lm_params_from_numpy(tree, cfg, "cpu")
+    cache, _ = ttf.prefill(params, torch.from_numpy(toks), cfg, CACHE)
+    pos = torch.tensor(cache["pos"])
+    for i, (tok, want) in enumerate(zip(fed, want_steps)):
+        logits = ttf.decode_step_at(params, cache, torch.from_numpy(tok),
+                                    pos, cfg)
+        np.testing.assert_allclose(logits.numpy(), want, **TOL,
+                                   err_msg=f"decode step {i}")
+    toks_t = torch.from_numpy(toks)
+    cache, last = ttf.prefill(params, toks_t, cfg, CACHE)
+    tok = last.argmax(-1).to(torch.int32)
+    want_tok = []
+    for _ in range(STEPS):
+        want_tok.append(tok)
+        logits, cache = ttf.decode_step(params, cache, tok, cfg)
+        tok = logits.argmax(-1).to(torch.int32)
+    cache, last = ttf.prefill(params, toks_t, cfg, CACHE)
+    pos = torch.tensor(cache["pos"])
+    tok = last.argmax(-1).to(torch.int32)
+    got_tok = torch.zeros((BATCH, STEPS), dtype=torch.int32)
+    col = torch.zeros(1, dtype=torch.int64)
+    for _ in range(STEPS):
+        ttf.greedy_step(params, cache, pos, tok, got_tok, col, cfg)
+    assert torch.equal(got_tok, torch.stack(want_tok, 1))
+
+
 def test_moe_configs_match_jax():
     for arch, (jmod, tmod) in ARCHS.items():
         for make in ("smoke_config", "config"):

@@ -19,7 +19,10 @@ plain versions of those decisions are held to the JAX package, exactly:
 - the port's RepairStats (int32 tensors) equal the JAX step's over a
   seeded stream that takes the skip, the dense tier, every compact bucket
   and the full tier (``tier_stream.py``), step by step and through the
-  scan entry.
+  scan entry;
+- the step's device-decided form, the body the step graph captures, run
+  here with its IF nodes decided on the host (``tier_stream.HostCond``),
+  equals the per-decision step at every step of that stream.
 
 Inputs come from seeded numpy generators at a few dozen vertices.
 """
@@ -295,3 +298,27 @@ def test_repair_stats_match_jax_over_every_branch(name):
     np.testing.assert_array_equal(ovf_h, np.asarray(jovf))
     np.testing.assert_array_equal(
         stats_h, np.stack([np.asarray(x) for x in jrep], -1))
+
+
+@pytest.mark.parametrize("name", ["tiered", "gate_off", "shortcut"])
+def test_decided_step_matches_eager(name):
+    """The step graph's body (``dynamic._step`` handed a capture, its IF
+    nodes run on the host by ``tier_stream.HostCond``) == the
+    per-decision step, which the test above holds to JAX: state, ok,
+    overflow and RepairStats at every step of the stream that takes every
+    branch."""
+    kw = dict(tier_stream.CONFIG)
+    kw["repair_gate"] = name != "gate_off"
+    kw["shortcut"] = name == "shortcut"
+    cfg = tgs.GraphConfig(**kw)
+    got = want = tgs.all_singletons(cfg, "cpu")
+    for i, (k, u, v) in enumerate(tier_stream.batches()):
+        ops = tdyn.make_ops(k, u, v)
+        got, gok, govf, gstats = tdyn._step(got, ops, cfg,
+                                            graph=tier_stream.HostCond())
+        want, wok, wovf, wrep = tdyn.apply_batch_stats_eager(want, ops, cfg)
+        for a, b in zip(carry.state_to_numpy(got).values(),
+                        carry.state_to_numpy(want).values()):
+            np.testing.assert_array_equal(a, b, f"step {i}")
+        assert torch.equal(gok, wok) and int(govf) == int(wovf)
+        assert gstats.tolist() == [int(x) for x in wrep], f"step {i}"

@@ -5,7 +5,10 @@ Each case is the counterpart of a reference test in tests/test_tenancy.py
 at its sizes (NV 24, its ``tiny_cfg``, buckets (8, 16), scan lengths
 (1, 4)): the lane-batched step against ``jax.vmap`` of the JAX scan
 (``repro.tenancy.engine._vmapped_scan``) on the same stacked states, bit
-for bit; the lane-batched kernels' plain versions against per-lane calls;
+for bit, both its per-decision form and the device-decided form the lane
+step graph captures (run here under ``tier_stream.HostCond``) over waves
+whose lanes take different branches; the lane-batched kernels' plain
+versions against per-lane calls;
 ``TenantEngine`` against the JAX engine and against one port
 ``SCCService`` per tenant; the service's typed clients; evict and
 rehydrate (with the port's store opened by the JAX package); the
@@ -20,6 +23,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import tier_stream
 
 from repro.core import dynamic as jdyn
 from repro.core import edge_table as jet
@@ -165,6 +170,89 @@ def test_lane_scan_matches_jax_vmapped_scan(name):
     assert torch.equal(one[1][0], solo[1])
     assert torch.equal(one[2][0], solo[2])
     assert [tuple(x[0]) for x in one[3]] == [tuple(x) for x in solo[3]]
+
+
+def _decided_scan(states, ops, cfg):
+    """The lane step graph's body (``dynamic._step_lanes`` handed a
+    capture) step by step on the CPU, each IF node a ``HostCond``:
+    ``(states, ok [T, K, B], ovf [T, K], stats int32[T, K, 3])``."""
+    outs = []
+    for k in range(ops.kind.shape[1]):
+        states, *out = dynamic._step_lanes(
+            states, dynamic.OpBatch(*(x[:, k] for x in ops)), cfg,
+            graph=tier_stream.HostCond())
+        outs.append(out)
+    return (states, *(torch.stack(x, 1) for x in zip(*outs)))
+
+
+def _branch(cfg, stats):
+    tier, rv, re_ = (int(x) for x in stats)
+    if tier == dynamic.TIER_SKIP:
+        return "skip"
+    code = dynamic.tier_code(cfg, torch.tensor(rv, dtype=torch.int32),
+                             torch.tensor(re_, dtype=torch.int32))
+    return dynamic.branches(cfg)[int(code)]
+
+
+def _lane_waves(t_n, k_n, b, seed):
+    """tier_stream's built wave, then a seeded random one."""
+    rng = np.random.default_rng(seed)
+    rand = [np.empty((t_n, k_n, b), np.int32) for _ in range(3)]
+    for t in range(t_n):
+        for k in range(k_n):
+            for x, y in zip(rand, rand_chunk(rng, b)):
+                x[t, k] = y
+    return [tier_stream.lane_wave(), tuple(rand)]
+
+
+def test_decided_lane_step_matches_eager_and_jax():
+    """The device-decided lane step (the lane graph's IF nodes run on the
+    host) == the per-decision lane step == ``jax.vmap`` of the JAX scan,
+    bit for bit, over two waves from all singletons: state leaves, ok,
+    overflow and per-lane RepairStats.  In the first wave the lanes of
+    one step choose different branches, and the wave takes the skip, the
+    dense tier, both compact buckets and the full tier."""
+    cfg = CFGS["tiered"]
+    assert cfg == gs.GraphConfig(**tier_stream.LANE_CONFIG)
+    t_n, k_n, b = 3, 4, tier_stream.LANE_B
+    states = gs.stack([gs.all_singletons(cfg, CPU)] * t_n)
+    jstates = to_jax(leaves(states))
+    for w, (pk, pu, pv) in enumerate(_lane_waves(t_n, k_n, b, seed=23)):
+        ops = dynamic.make_ops(pk, pu, pv)
+        got = _decided_scan(states, ops, cfg)
+        eager = dynamic.apply_batch_scan_lanes(states, ops, cfg)
+        want = _vmapped_scan(jstates, jdyn.make_ops(pk, pu, pv),
+                             jax_cfg(cfg))
+        assert_leaves_equal(leaves(got[0]), leaves(eager[0]), f"wave {w}")
+        assert_leaves_equal(leaves(got[0]), jax_leaves(want[0]), f"wave {w}")
+        for x, e, j in zip(got[1:3], eager[1:3], want[1:3]):
+            assert torch.equal(x, e)
+            np.testing.assert_array_equal(x.numpy(), np.asarray(j))
+        assert torch.equal(got[3], torch.stack(tuple(eager[3]), -1))
+        np.testing.assert_array_equal(
+            got[3].numpy(), np.stack([np.asarray(x) for x in want[3]], -1))
+        if w == 0:
+            by_step = [{_branch(cfg, got[3][t, k]) for t in range(t_n)}
+                       for k in range(k_n)]
+            assert max(len(x) for x in by_step) == t_n, by_step
+            assert set().union(*by_step) == \
+                {"skip", *dynamic.branches(cfg)}, by_step
+        states, jstates = got[0], want[0]
+
+
+def test_decided_lane_step_gate_off_matches_eager():
+    """With the repair gate off every lane repairs: the device-decided
+    lane step == the per-decision one over tier_stream's lane wave."""
+    cfg = dataclasses.replace(CFGS["tiered"], repair_gate=False)
+    ops = dynamic.make_ops(*tier_stream.lane_wave())
+    states = gs.stack([gs.all_singletons(cfg, CPU)] * 3)
+    got = _decided_scan(states, ops, cfg)
+    eager = dynamic.apply_batch_scan_lanes(states, ops, cfg)
+    assert_leaves_equal(leaves(got[0]), leaves(eager[0]))
+    for x, e in zip(got[1:3], eager[1:3]):
+        assert torch.equal(x, e)
+    assert torch.equal(got[3], torch.stack(tuple(eager[3]), -1))
+    assert (got[3][..., 0] != dynamic.TIER_SKIP).all()
 
 
 # ------------------------------------------- lane-batched plain versions ---
