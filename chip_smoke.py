@@ -42,7 +42,12 @@ Phases, each printing one line or more:
    SCC, outer loop included, in one launch; min labels and priorities)
    on the same graphs, held exactly (labels, outer rounds, rounds by
    form) to its plain version on the card and to one launch a sweep with
-   a host read an outer round (the parent's path, ``loop_ms``);
+   a host read an outer round (the parent's path, ``loop_ms``); each
+   fixpoint and scc row also carries its parts (``part_rows``: one
+   launch with part stamps, each pass in microseconds, the edge list's
+   making once a launch), a byte bound that reads each input once
+   (``bound_ms``) and the rounds times one round's bytes beside it
+   (``rounds_bound_ms``);
    the edge table's write path at update_1m's table (2^23 slots, 2^21
    edges, a quarter removed): the boot insert, an 8192-lane insert with
    duplicates and an enable mask, an 8192-lane remove, compact, rehash to
@@ -355,6 +360,14 @@ def bound_ms(n_bytes: float, n_ops: float = 0.0,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def read_once_ms(slots: int, words: int, state_bytes: int) -> tuple:
+    """A fixpoint's bound, each input read once and each output written
+    once, whatever the rounds: the table (src, dst 4 B, live 1 B a slot),
+    the mask (1 B a vertex and lane) and the state read and written
+    (``state_bytes`` each way).  ``bound_ms``' (ms, by)."""
+    return bound_ms(9 * slots + words + 2 * state_bytes)
+
+
 def max_abs_err(torch, got, want) -> float:
     return float((got.long() - want.long()).abs().max()) if got.numel() else 0.0
 
@@ -646,6 +659,58 @@ def _fix_cases(torch, dev, g, allowed, vid, cap):
                               device=dev)), cap))
 
 
+def part_rows(torch, kern, want, where, tag) -> dict:
+    """A fixpoint row's parts: one launch of ``kern(stamps=...)`` with part
+    stamps (``ops.fixpoint_parts``), its result equal to ``want``.  The
+    launch's grid and blocks an SM (grid / SMs), the sweeps' rounds the
+    card counted, and each pass in microseconds with its barrier wait: a
+    pass's mean over the barriers of its kind, the edge lists' making in
+    total a launch."""
+    from repro_torch.kernels.frontier_expand import ops as fops
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return all(same(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b)
+
+    dev = want[1].device
+    fops.reset_fixpoint_rounds()
+    buf = fops.stamp_buffer(dev)
+    got = kern(stamps=buf)
+    swept = sum(n for k, n in fops.fixpoint_rounds().items() if k != "scc")
+    check(same(got, want), f"{tag} on {where}: a stamped launch differs")
+    stamped = fops.fixpoint_parts(buf)
+    parts = {k: round((p["pass_us"] + p["wait_us"]) /
+                      (1 if k == "compact" else max(p["n"], 1)), 3)
+             for k, p in stamped["parts"].items()
+             if k in ("edge", "vertex", "hop", "compact")}
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 1)
+    return dict(grid=stamped["grid"], blocks_an_sm=stamped["grid"] / sms,
+                swept_rounds=swept, parts_us_a_round=parts)
+
+
+def fixpoint_graphs(torch, dev, nv=2 ** 20, cap=2 ** 23, lanes=256,
+                    lane_nv=4096, lane_cap=2 ** 14) -> tuple:
+    """(where, state) of the fixpoint rows' two graphs: update_1m's
+    preloaded graph (``nv`` vertices, ``cap`` slots, out-degree 2 from a
+    seeded generator) and ``lanes`` tenant lanes at the tenant path's
+    class-A shape, booted by a lane recompute."""
+    import numpy as np
+
+    from repro_torch.configs import smscc
+    from repro_torch.core import graph_state as gs
+
+    rng = np.random.default_rng(SEED)
+    src_np = np.repeat(np.arange(nv, dtype=np.int32), 2)
+    state = gs.from_arrays(smscc.config(n_vertices=nv, edge_capacity=cap),
+                           src_np, rng.integers(0, nv, src_np.shape[0])
+                           .astype(np.int32), device=dev)
+    lcfg = smscc.config(n_vertices=lane_nv, edge_capacity=lane_cap)
+    boot, _, _ = boot_lanes(torch, dev, lcfg, lanes, 2, SEED + 40)
+    return ("update_1m", state), (f"lanes T={lanes}", boot)
+
+
 def fixpoint_checks(torch, dev, g, nv=2 ** 20, cap=2 ** 23, lanes=256,
                     lane_nv=4096, lane_cap=2 ** 14, reps=3) -> dict:
     """Every fixpoint form of frontier_min (``ops.frontier_fixpoint``: all
@@ -661,13 +726,14 @@ def fixpoint_checks(torch, dev, g, nv=2 ** 20, cap=2 ** 23, lanes=256,
     must make no host read.  Times: ``ms`` the launch's device time from
     a replayed CUDA graph (so it captures), ``host_ms`` the wrapper back
     to back, ``loop_ms`` the per-round loop and ``plain_ms`` the plain
-    version on the card, one call each; ``bound_ms`` the rounds times one
-    round's bytes as ``frontier_round_checks`` reckons them (src, dst 4 B
-    and live 1 B a slot, val and out 4 B a vertex and row)."""
-    import numpy as np
-
+    version on the card, one call each; ``bound_ms`` every input read once
+    and the state written once (``read_once_ms``), and
+    ``rounds_bound_ms`` the rounds times one round's bytes as
+    ``frontier_round_checks`` reckons them (src, dst 4 B and live 1 B a
+    slot, val and out 4 B a vertex and row), the bound PERF.md kept for
+    the fixpoint forms before the edge list.  Each row adds
+    ``part_rows``."""
     from repro_torch.configs import smscc
-    from repro_torch.core import graph_state as gs
     from repro_torch.core import reach
     from repro_torch.core.edge_table import LIVE
     from repro_torch.core.sync import SYNCS
@@ -675,15 +741,9 @@ def fixpoint_checks(torch, dev, g, nv=2 ** 20, cap=2 ** 23, lanes=256,
     from repro_torch.kernels.frontier_expand import ref as fref
 
     max_inner = smscc.config().max_inner
-    rng = np.random.default_rng(SEED)
-    src_np = np.repeat(np.arange(nv, dtype=np.int32), 2)
-    state = gs.from_arrays(smscc.config(n_vertices=nv, edge_capacity=cap),
-                           src_np, rng.integers(0, nv, src_np.shape[0])
-                           .astype(np.int32), device=dev)
-    lcfg = smscc.config(n_vertices=lane_nv, edge_capacity=lane_cap)
-    boot, _, _ = boot_lanes(torch, dev, lcfg, lanes, 2, SEED + 40)
     out = {}
-    for where, st in (("update_1m", state), (f"lanes T={lanes}", boot)):
+    for where, st in fixpoint_graphs(torch, dev, nv, cap, lanes, lane_nv,
+                                     lane_cap):
         src, dst, live = st.edges.src, st.edges.dst, st.edges.state == LIVE
         allowed = st.v_alive
         n = allowed.shape[-1]
@@ -694,9 +754,9 @@ def fixpoint_checks(torch, dev, g, nv=2 ** 20, cap=2 ** 23, lanes=256,
                 torch, dev, g, allowed, vid, max_inner):
             kw = dict(shortcut=shortcut, vid=vid)
 
-            def kern(i=init, m=mask, f=form, k=kw, c=it):
+            def kern(i=init, m=mask, f=form, k=kw, c=it, **probe):
                 return fops.frontier_fixpoint(f, src, dst, live, m, i, c,
-                                              **k)
+                                              **k, **probe)
 
             def loop(i=init, m=mask, f=form, k=kw, c=it):
                 return reach.round_loop(f, src, dst, live, m, i, c, **k)
@@ -732,8 +792,11 @@ def fixpoint_checks(torch, dev, g, nv=2 ** 20, cap=2 ** 23, lanes=256,
             f_rows = 1 if form == "trim" else (
                 init.shape[-2] if form in ("pair", "or") else 1)
             t_n = src.numel() // src.shape[-1]
-            b_ms, b_by = bound_ms(ran * (9 * src.numel()
-                                         + 2 * 4 * f_rows * n * t_n))
+            b_ms, b_by = read_once_ms(src.numel(), n * t_n, sum(
+                x.numel() * x.element_size()
+                for x in (init if form == "trim" else (init,))))
+            r_ms, _ = bound_ms(ran * (9 * src.numel()
+                                      + 2 * 4 * f_rows * n * t_n))
             theirs = ref_card[0] if form == "trim" else (ref_card[0],)
             rows.append(checked_row(dict(
                 shape=f"{tag}: E={src.shape[-1]} NV={n}"
@@ -746,7 +809,8 @@ def fixpoint_checks(torch, dev, g, nv=2 ** 20, cap=2 ** 23, lanes=256,
                 ms=graph_ms(torch, kern, reps),
                 host_ms=cuda_ms(torch, kern, reps), loop_ms=loop_ms,
                 plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by)))
+                bound_by=b_by, rounds_bound_ms=r_ms,
+                **part_rows(torch, kern, got, where, tag))))
             del got, want, ref_card, runs
         rows += scc_rows(torch, dev, src, dst, live, allowed, where, reps)
         out[where] = rows
@@ -762,8 +826,9 @@ def scc_rows(torch, dev, src, dst, live, active, where, reps) -> list:
     (``ref.scc_loop`` over the plain fixpoints; the CPU tests hold it to
     JAX) and to the parent's path (``scc_loop`` over one fixpoint launch a
     sweep and one host read an outer round: ``loop_ms``); no host read.
-    Bound: the rounds its sweeps ran times one round's bytes, as
-    ``fixpoint_checks`` reckons them."""
+    Bound: read once, the table, the active set and the labels written;
+    beside it the rounds its sweeps ran times one round's bytes, as
+    ``fixpoint_checks`` reckons them.  Each row adds ``part_rows``."""
     from repro_torch.configs import smscc
     from repro_torch.core import reach
     from repro_torch.core.sync import SYNCS
@@ -776,10 +841,10 @@ def scc_rows(torch, dev, src, dst, live, active, where, reps) -> list:
     t_n = src.numel() // src.shape[-1]
     rows = []
     for shortcut in (False, True):
-        def kern(sc=shortcut):
+        def kern(sc=shortcut, **probe):
             return fops.frontier_fixpoint("scc", src, dst, live, active, None,
                                           max_inner, shortcut=sc,
-                                          max_outer=max_outer)
+                                          max_outer=max_outer, **probe)
 
         def loop(sc=shortcut):
             return fref.scc_loop(src, dst, live, active, max_outer,
@@ -808,7 +873,9 @@ def scc_rows(torch, dev, src, dst, live, active, where, reps) -> list:
         check(by_form == {k: n_ for k, n_ in tally.items() if n_},
               f"{tag} on {where}: rounds by form {by_form} != {tally}")
         swept = sum(tally.get(k, 0) for k in ("trim", "label", "prio"))
-        b_ms, b_by = bound_ms(swept * (9 * src.numel() + 2 * 4 * n * t_n))
+        # the active set read, the labels written
+        b_ms, b_by = read_once_ms(src.numel(), n * t_n, 2 * n * t_n)
+        r_ms, _ = bound_ms(swept * (9 * src.numel() + 2 * 4 * n * t_n))
         rows.append(checked_row(dict(
             shape=f"{tag}: E={src.shape[-1]} NV={n}"
                   + (f" x T={t_n}" if t_n > 1 else "")
@@ -818,7 +885,8 @@ def scc_rows(torch, dev, src, dst, live, active, where, reps) -> list:
             max_abs_err=max_abs_err(torch, got[0], want[0]),
             ms=graph_ms(torch, kern, reps), host_ms=cuda_ms(torch, kern, reps),
             loop_ms=loop_ms, plain_ms=plain_ms, library_ms=None,
-            bound_ms=b_ms, bound_by=b_by)))
+            bound_ms=b_ms, bound_by=b_by, rounds_bound_ms=r_ms,
+            **part_rows(torch, kern, got, where, tag))))
         del got, want, runs
     return rows
 

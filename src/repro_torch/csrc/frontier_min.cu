@@ -57,22 +57,54 @@
 //
 // Fixpoint form (every sweep of core/reach.py and scc.trim on the card).
 // Replaces the lax.while_loop that the JAX package runs each sweep in
-// (src/repro/core/reach.py:41 _fixpoint; scc.py:56 trim through it): the
-// port's per-round loop read each round's changed flag back to the host,
-// ~0.9 ms of host time a round beside ~0.1 ms of device time.  One
-// persistent cooperative launch runs all rounds: the gather above with
-// each edge's message read from the sweep's own state, a grid barrier,
-// each vertex word's update (which resets its gather word for the next
-// round and notes a change, one atomic a block), a barrier (one more
-// before the pointer-doubling hop of the label and priority forms), and
-// every thread reads whether any lane changed.  The round count and the
-// cap are JAX's exactly; tenant lanes freeze after their first unchanged
-// round.  The scc form runs a whole static SCC (trim and both sweeps, round
-// after outer round) in one launch the same way (see scc_rounds).
-// Bound: bytes, a round's as for the gather form, times the
-// rounds; the barriers add a few microseconds a round.  Buffers the launch
+// (src/repro/core/reach.py:41 _fixpoint; scc.py:56 trim through it).  One
+// persistent cooperative launch runs all rounds, each an edge pass, a grid
+// barrier, the vertex pass (each word's update, which resets its gather
+// word and notes a change; hop forms one more barrier and the pointer-
+// doubling hop), a barrier, then every thread reads whether any lane
+// changed.  The round count and the cap are JAX's exactly; tenant lanes
+// freeze after their first unchanged round.  The scc form runs a whole
+// static SCC (trim and both sweeps, round after outer round) in one launch
+// the same way (see scc_rounds).
+//
+// Bound: bytes.  Its first design streamed the whole table (9 B a slot,
+// 75.5 MB at update_1m, more than the 50 MB L2) from device memory every
+// round at 2-3 blocks an SM: 74-120 us a round's edge pass, and 23-68 us
+// a vertex pass over 2^20 words (PERF.md, section 6).  What this design
+// does:
+// - The first round reads the table once and lists, per row, the edges
+//   that can carry a message in a later round (live, ids in range, both
+//   ends inside the mask; trim: both ends unassigned) as (src, dst) pairs,
+//   8 B an edge, one atomic a block and tile on the row's count; later
+//   rounds read only the list (2^21 edges, 16.8 MB at update_1m, which
+//   stays in L2 beside the vertex arrays).
+// - After the first round a source sends only if its word changed in the
+//   previous round (``last``, the round mod 256; a stale match only sends
+//   a message again).  The states are monotone, so an unchanged source's
+//   message reached its targets in the round after it last changed and
+//   each is at or below it since: every state and round count is exact.
+// - Trim keeps in- and out-degrees over the edges whose ends are both
+//   unassigned: counted in the first round, an edge uncounted in the round
+//   after one of its ends was peeled (its un byte 2 for that one round),
+//   so a round's atomics are those of the edges that just died.
+// - The vertex pass visits only words a message reached (trim and the hop
+//   forms all); each block takes a contiguous span of words, so a thread
+//   flushes one or two lanes' change flags.
+// - Tenant rows are walked in tiles of one row, so a frozen lane's edges
+//   are skipped unread and row offsets are added once a tile.
+// - No read before an atomic: the atomics are fire-and-forget reductions,
+//   and every form ran as fast or faster without the read (PERF.md).
+// The grid is the co-resident one, held to four blocks an SM
+// (__launch_bounds__); the barriers cost ~1 us each.  nvcc -Xptxas -v
+// (sm_90a): every fixpoint_rounds instance 64 registers, spill stores
+// and loads of 28 B (reach), 24 (or), 4 (trim), none (pair, label,
+// prio); scc_rounds 80 registers, 48 B stores and 112 B loads (min
+// labels), 56 and 176 (priorities).  Buffers the launch
 // rewrites are read through L2 (__ldcg), never the read-only path, which
-// may keep last round's words.
+// may keep last round's words.  The launch's bound reads the table (9 B
+// a slot), the mask and the state once and writes the state once; the
+// rounds times a round's table and state bytes, the bound its first
+// design was held to, stands beside it (chip_smoke's rows).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -190,6 +222,8 @@ enum Form { kReach = 0, kPairForm = 1, kLabel = 2, kPrio = 3, kOrForm = 4,
 constexpr int kInt32Max = 0x7FFFFFFF;
 constexpr unsigned kPrioInv = 0x0E8B2F51u;  // 0x9E3779B1^-1 mod 2^32
 constexpr int kMaxLanes = 32 * 1024;  // one byte of shared memory a lane
+constexpr int kTile = kThreads * kUnroll;  // edges a block takes at once
+constexpr int kFixBlocks = 4;  // blocks an SM the fixpoint forms are held to
 
 struct FixArgs {
   const int* src;
@@ -201,11 +235,70 @@ struct FixArgs {
   const int* vid;       // trim: [nv]
   unsigned* out;        // [T, f, nv] scratch: the round's gather
   unsigned* hop;        // [T, nv] scratch: a round's labels before the hop
-  int* flags;           // [4 T + 2] scratch, see fixpoint_rounds
+  int* flags;           // [4 T + 2] scratch, see fixpoint_body
   int* rounds;          // [T] out
   unsigned long long* tally;  // [7] or null: rounds run, by form
+  unsigned long long* stamps;  // null, or part stamps (see Stamps)
+  int2* list;           // [T, e] scratch: each row's listed edges (src, dst)
+  int* count;           // [T] scratch: the edges listed in each row
+  unsigned char* last;  // [T, f, nv] scratch: the round each word last
+                        // changed in, mod 256
   long long e, total;   // edges a row, T * e
   int t, f, nv, shortcut, max_iters;
+  int n_stamps;         // records the stamps buffer holds
+  int compact;          // 1: the first round reads the slots and lists the
+                        // edges; 0: it reads the list a sweep before made
+  int reverse;          // walk the listed edges dst -> src
+};
+
+// Part stamps, for measurement only: every main-path launch passes null
+// and takes none of these branches.  Each grid barrier of a launch is one
+// record of four words: its kind, the first and the last block's arrival
+// and the time block 0 left it (%globaltimer, ns).  Words 0-3 of the
+// buffer hold the grid, the records written, the launch's first and its
+// last stamp.  The caller fills the arrival words with ~0 and 0.
+enum Part { kInit = 1, kEdgePass = 2, kVertexPass = 3, kHopPass = 4,
+            kSccPass = 5, kCompactPass = 6 };
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+struct Stamps {
+  unsigned long long* buf;
+  int cap, k = 0;
+  __device__ Stamps(unsigned long long* b, int c) : buf(b), cap(c) {
+    if (buf != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+      buf[0] = gridDim.x;
+      buf[2] = global_ns();
+    }
+  }
+  // a grid barrier of the given kind, stamped when a buffer was given
+  __device__ void sync(cg::grid_group& grid, int kind) {
+    unsigned long long* rec = buf != nullptr && k < cap ? buf + 4 + 4 * k
+                                                        : nullptr;
+    if (rec != nullptr) {
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        const unsigned long long t = global_ns();
+        atomicMin(rec + 1, t);
+        atomicMax(rec + 2, t);
+      }
+    }
+    grid.sync();
+    if (rec != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+      rec[0] = (unsigned long long)kind;
+      rec[3] = global_ns();
+      buf[1] = (unsigned long long)(k + 1);
+    }
+    ++k;
+  }
+  __device__ void finish() {
+    if (buf != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+      buf[3] = global_ns();
+  }
 };
 
 template <int kForm>
@@ -213,47 +306,195 @@ __host__ __device__ constexpr int mode_of() {
   return kForm == kPairForm ? kPair : (kForm == kOrForm ? kOr : kMin);
 }
 
-// A round's messages, read from the state the previous round left.  The
-// state is rewritten inside the launch, so it is read through L2 (__ldcg):
-// the read-only path could hand back last round's words.
-template <int kForm>
-struct FixMsg {
-  const void* state;
-  const uint8_t* mask;
-  const unsigned char* act;  // shared: which lanes run this round
-  int f, nv;
-  __device__ bool lane(long long row) const { return act[row]; }
-  __device__ unsigned operator()(long long row, int r, int from) const {
-    const long long at = (row * f + r) * nv + from;
-    if (kForm == kReach || kForm == kPairForm)
-      return __ldcg(static_cast<const unsigned char*>(state) + at)
-                 ? 0u : kSent32;
-    if (kForm == kOrForm)
-      return __ldcg(static_cast<const unsigned*>(state) + at);
-    // label, prio: only vertices inside the mask send (the scc form
-    // rewrites its mask between sweeps, so it too is read through L2)
-    return __ldcg(mask + row * nv + from)
-               ? __ldcg(static_cast<const unsigned*>(state) + at) : kSent32;
-  }
-};
+// i / d for the vertex passes' word indices: 32-bit where both fit
+__device__ __forceinline__ long long quot(long long i, long long d,
+                                          bool small) {
+  return small ? (long long)((unsigned)i / (unsigned)d) : i / d;
+}
 
-// trim's gather: flag 1 on the head and 2 on the tail of every live edge
-// whose ends are both unassigned (in- and out-degree above zero)
-__device__ __forceinline__ void trim_edges(const FixArgs& a,
-                                           const unsigned char* act) {
-  const auto* un = static_cast<const unsigned char*>(a.state);
-  const long long step = (long long)gridDim.x * kThreads;
-  for (long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
-       i < a.total; i += step) {
-    const long long row = a.t == 1 ? 0 : i / a.e;
-    if (!act[row] || !a.live[i]) continue;
-    const int s = a.src[i], d = a.dst[i];
-    if ((unsigned)s >= (unsigned)a.nv || (unsigned)d >= (unsigned)a.nv)
+// The contiguous span of a vertex pass's n words that this block takes:
+// a thread's words then fall in one or two lanes, so it flushes one or
+// two change notes (grid-strided, every thread touched many lanes, and
+// their flags took ~10^6 atomics a round over 256 lanes).
+__device__ __forceinline__ void block_span(long long n, long long& lo,
+                                           long long& hi) {
+  const long long per = (n + gridDim.x - 1) / gridDim.x;
+  lo = min(n, blockIdx.x * per);
+  hi = min(n, lo + per);
+}
+
+// What word w of the state sends along an edge: 0 when reached (reach,
+// pair), else the word.  The state is rewritten inside the launch, so it
+// is read through L2 (__ldcg): the read-only path could hand back last
+// round's words.
+template <int kForm>
+__device__ __forceinline__ unsigned message(const FixArgs& a, long long w) {
+  if (kForm == kReach || kForm == kPairForm)
+    return __ldcg(static_cast<const unsigned char*>(a.state) + w)
+               ? 0u : kSent32;
+  return __ldcg(static_cast<const unsigned*>(a.state) + w);
+}
+
+// One round's edge pass, tile by tile, a tile being kTile edges of one
+// row, so a row that stopped is skipped unread and the row offsets are
+// added once a tile.  kSlots: the sweep's first round, over the table's
+// slots: every live slot whose ids fall in range carries its source's
+// message to a target inside the mask, and the slots that can carry one
+// in a later round go to the row's list (both ends inside the mask: only
+// a vertex inside it ever changes, and a message to one outside it is
+// dropped; trim: both ends unassigned).  Else over the list, where a
+// source sends only if it changed in the previous round (every source in
+// a sweep's first round): the states are monotone, so an unchanged
+// source's message reached its targets in the round after it last
+// changed, and each is at or below it since.  Min and OR do not depend on
+// the order the atomics land in, so the list's order changes nothing.
+template <int kForm, bool kSlots>
+__device__ __forceinline__ void edge_pass(const FixArgs& a,
+                                          const unsigned char* act, int it) {
+  constexpr int kMode = mode_of<kForm>();
+  constexpr int kWarps = kThreads / 32;
+  __shared__ int s_list[kWarps + 1];  // each warp's place, the tile's base
+  const int nv = a.nv;
+  const long long per_row = (a.e + kTile - 1) / kTile;
+  long long tiles = a.t * per_row;
+  if (!kSlots && a.t == 1) tiles = (__ldcg(a.count) + kTile - 1) / kTile;
+  const unsigned char prev = (unsigned char)(it - 1);
+  const unsigned lane_lt = (1u << (threadIdx.x & 31)) - 1u;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    // block-uniform: every thread of the block takes the same branch
+    const long long row = a.t == 1 ? 0 : tile / per_row;
+    if (!act[row]) continue;
+    const long long k0 = (tile - row * per_row) * kTile;
+    const long long n_row = kSlots ? a.e : __ldcg(a.count + row);
+    if (k0 >= n_row) continue;
+    const long long base = row * a.e;
+    int s[kUnroll], d[kUnroll];
+    bool ok[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const long long j = k0 + k * kThreads + threadIdx.x;
+      const bool in = j < n_row;
+      if (kSlots) {
+        s[k] = in ? a.src[base + j] : -1;
+        d[k] = in ? a.dst[base + j] : -1;
+        // unsigned compares drop -1 padding and junk slots in one test
+        ok[k] = in && a.live[base + j] && (unsigned)s[k] < (unsigned)nv &&
+                (unsigned)d[k] < (unsigned)nv;
+      } else {
+        const int2 ed = in ? __ldcg(a.list + base + j) : make_int2(0, 0);
+        s[k] = a.reverse ? ed.y : ed.x;
+        d[k] = a.reverse ? ed.x : ed.y;
+        ok[k] = in;
+      }
+    }
+    // the row's mask (trim: the unassigned set); the scc form rewrites
+    // it between sweeps, so it too is read through L2
+    const uint8_t* m = (kForm == kTrim ? static_cast<const uint8_t*>(a.state)
+                                       : a.mask) + row * nv;
+    bool ms[kUnroll] = {}, md[kUnroll] = {};
+    if (kSlots) {
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        ms[k] = ok[k] && __ldcg(m + s[k]);
+        md[k] = ok[k] && __ldcg(m + d[k]);
+      }
+      // list the kept edges: one atomic a block and tile (one a warp
+      // serialised ~2.6 10^5 atomics on update_1m's one counter)
+      const int warp = threadIdx.x >> 5;
+      unsigned b[kUnroll];
+      int kept = 0;
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        b[k] = __ballot_sync(0xFFFFFFFFu, ms[k] && md[k]);
+        kept += __popc(b[k]);
+      }
+      if ((threadIdx.x & 31) == 0) s_list[warp] = kept;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        int sum = 0;
+        for (int w = 0; w < kWarps; ++w) {
+          const int c = s_list[w];
+          s_list[w] = sum;
+          sum += c;
+        }
+        s_list[kWarps] = sum > 0 ? atomicAdd(a.count + row, sum) : 0;
+      }
+      __syncthreads();
+      int at = s_list[kWarps] + s_list[warp];
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        if (ms[k] && md[k])
+          a.list[base + at + __popc(b[k] & lane_lt)] = make_int2(s[k], d[k]);
+        at += __popc(b[k]);
+      }
+      __syncthreads();  // s_list is rewritten for the next tile
+    }
+    if (kForm == kTrim) {
+      // degrees over the edges whose ends are both unassigned: counted in
+      // the first round, then each edge uncounted in the round after one
+      // of its ends was peeled (un 2), so a round's atomics are those of
+      // the edges that just died, not one a live edge
+      unsigned* in_deg = a.out + row * nv;
+      unsigned* out_deg = a.hop + row * nv;
+      if (kSlots) {
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          if (!(ms[k] && md[k])) continue;
+          atomicAdd(in_deg + d[k], 1u);
+          atomicAdd(out_deg + s[k], 1u);
+        }
+      } else {
+        unsigned char us[kUnroll], ud[kUnroll];
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          us[k] = ok[k] ? __ldcg(m + s[k]) : 0;
+          ud[k] = ok[k] ? __ldcg(m + d[k]) : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          if (!us[k] || !ud[k] || (us[k] != 2 && ud[k] != 2)) continue;
+          if (ud[k] == 1) atomicSub(in_deg + d[k], 1u);
+          if (us[k] == 1) atomicSub(out_deg + s[k], 1u);
+        }
+      }
       continue;
-    const long long base = row * a.nv;
-    if (!__ldcg(un + base + s) || !__ldcg(un + base + d)) continue;
-    if (!(__ldcg(a.out + base + d) & 1u)) atomicOr(a.out + base + d, 1u);
-    if (!(__ldcg(a.out + base + s) & 2u)) atomicOr(a.out + base + s, 2u);
+    }
+    // each step is issued for all kUnroll edges before the next one waits
+    // on it: the sources' change rounds, their messages, the words they
+    // would lower, then the atomics that change something
+    for (int r = 0; r < a.f; ++r) {
+      // pair: row 1 runs along dst -> src
+      const bool back = kForm == kPairForm && r == 1;
+      const long long off = (row * a.f + r) * nv;
+      bool send[kUnroll];
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        if (kSlots)  // labels and priorities send only from inside the mask
+          send[k] = kForm == kLabel || kForm == kPrio ? ms[k] && md[k]
+                                                      : (back ? ms[k] : md[k]);
+        else
+          send[k] = ok[k] && (it == 0 ||
+                              __ldcg(a.last + off + (back ? d[k] : s[k])) ==
+                                  prev);
+      }
+      unsigned v[kUnroll];
+      unsigned* o[kUnroll];
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        v[k] = send[k] ? message<kForm>(a, off + (back ? d[k] : s[k]))
+                       : identity<kMode>();
+        o[k] = a.out + off + (back ? s[k] : d[k]);
+      }
+      // no read before the atomic (PERF.md: faster or equal in every form)
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        if (v[k] == identity<kMode>()) continue;
+        if (kMode == kOr)
+          atomicOr(o[k], v[k]);
+        else
+          atomicMin(o[k], v[k]);
+      }
+    }
   }
 }
 
@@ -288,30 +529,45 @@ struct Changes {
 
 // The round's update of word i (lane row, vertex v) from the gathered
 // word ``inc``; hop forms leave the update in a.hop and finish it in
-// hop_update after a grid barrier.  Notes whether the state changed.
+// hop_update after a grid barrier.  Notes whether the state changed, and
+// stamps a changed word with the round in a.last.
 template <int kForm>
 __device__ __forceinline__ void update(const FixArgs& a, long long i,
                                        long long row, long long mv,
-                                       unsigned inc, bool hop, Changes& ch,
-                                       int* lane_flag) {
+                                       unsigned inc, bool hop, int it,
+                                       Changes& ch, int* lane_flag) {
   if (kForm == kReach || kForm == kPairForm) {
     auto* st = static_cast<unsigned char*>(a.state);
     const unsigned char old = __ldcg(st + i);
     const unsigned char nxt = old | (inc == 0u && __ldcg(a.mask + mv));
-    if (nxt != old) st[i] = nxt;
+    if (nxt != old) {
+      st[i] = nxt;
+      a.last[i] = (unsigned char)it;
+    }
     ch.note(row, nxt != old, lane_flag);
   } else if (kForm == kOrForm) {
     auto* st = static_cast<unsigned*>(a.state);
     const unsigned old = __ldcg(st + i);
     const unsigned nxt = old | (__ldcg(a.mask + mv) ? inc : 0u);
-    if (nxt != old) st[i] = nxt;
+    if (nxt != old) {
+      st[i] = nxt;
+      a.last[i] = (unsigned char)it;
+    }
     ch.note(row, nxt != old, lane_flag);
   } else if (kForm == kTrim) {
+    // un: 1 unassigned, 2 peeled in the previous round (its edges were
+    // uncounted in this round's edge pass), 0 assigned
     auto* un = static_cast<unsigned char*>(a.state);
-    const bool peel = __ldcg(un + i) && inc != 3u;
-    if (peel) {
+    const unsigned char u = __ldcg(un + i);
+    bool peel = false;
+    if (u == 2) {
       un[i] = 0;
-      a.ccid[i] = __ldg(a.vid + (mv - row * a.nv));
+    } else if (u == 1) {
+      peel = __ldcg(a.out + i) == 0u || __ldcg(a.hop + i) == 0u;
+      if (peel) {
+        un[i] = 2;
+        a.ccid[i] = __ldg(a.vid + (mv - row * a.nv));
+      }
     }
     ch.note(row, peel, lane_flag);
   } else if (kForm == kLabel) {
@@ -324,7 +580,10 @@ __device__ __forceinline__ void update(const FixArgs& a, long long i,
       a.hop[i] = (unsigned)nxt;
       return;
     }
-    if (nxt != old) st[i] = nxt;
+    if (nxt != old) {
+      st[i] = nxt;
+      a.last[i] = (unsigned char)it;
+    }
     ch.note(row, nxt != old, lane_flag);
   } else {  // kPrio
     const unsigned old = __ldcg(static_cast<unsigned*>(a.state) + i);
@@ -337,7 +596,8 @@ __device__ __forceinline__ void update(const FixArgs& a, long long i,
 template <int kForm>
 __device__ __forceinline__ void hop_update(const FixArgs& a, long long i,
                                            long long row, long long mv,
-                                           Changes& ch, int* lane_flag) {
+                                           int it, Changes& ch,
+                                           int* lane_flag) {
   const unsigned nxt = __ldcg(a.hop + i);
   const bool on = __ldcg(a.mask + mv);
   long long w;
@@ -357,17 +617,21 @@ __device__ __forceinline__ void hop_update(const FixArgs& a, long long i,
   }
   auto* st = static_cast<unsigned*>(a.state);
   const unsigned old = __ldcg(st + i);
-  if (fin != old) st[i] = fin;
+  if (fin != old) {
+    st[i] = fin;
+    a.last[i] = (unsigned char)it;
+  }
   ch.note(row, fin != old, lane_flag);
 }
 
 // Every round of one fixpoint, JAX's ``while changed & (it < max_iters)``,
-// run by the whole cooperative grid.  A round: the edge gather into out
+// run by the whole cooperative grid.  A round: the edge pass into out
 // (grid barrier), each vertex word's update, which resets its out word
 // for the next round and notes a change (a barrier; hop forms one more
-// before the hop), then every thread reads whether any lane changed.
-// Returns the rounds run (the most any lane ran) and adds them to
-// tally[kForm].
+// before the hop), then every thread reads whether any lane changed.  The
+// first round's edge pass lists the edges (with a.compact; else a list
+// is given), later rounds read only the list.  Returns the rounds run
+// (the most any lane ran) and adds them to tally[kForm].
 //
 // flags: L[2][T] (lane ran in the round of that parity), C[2][T] (lane
 // changed in it), G[2] (some lane changed).  Lane t runs round r when it
@@ -383,28 +647,35 @@ template <int kForm>
 __device__ __forceinline__ int fixpoint_body(const FixArgs& a,
                                              unsigned char* act,
                                              long long* s_row,
-                                             const int* lane_on) {
+                                             const int* lane_on,
+                                             Stamps& st) {
   cg::grid_group grid = cg::this_grid();
   const long long first = blockIdx.x * (long long)kThreads + threadIdx.x;
   const long long step = (long long)gridDim.x * kThreads;
   const int t = a.t;
   const long long fnv = (long long)a.f * a.nv;
   const long long n = t * fnv;
-  const bool flat = t == 1 && a.f == 1;
+  const bool small = n <= 0xFFFFFFFFLL;
   const bool hop = kForm == kPrio || (kForm == kLabel && a.shortcut);
   const unsigned ident = mode_of<kForm>() == kOr || kForm == kTrim
                              ? 0u : kSent32;
   int* lanes_ran = a.flags;
   int* lanes_changed = a.flags + 2 * t;
   int* any_changed = a.flags + 4 * t;
-  for (long long i = first; i < n; i += step) a.out[i] = ident;
+  long long lo, hi;
+  block_span(n, lo, hi);
+  for (long long i = first; i < n; i += step) {
+    a.out[i] = ident;
+    if (kForm == kTrim) a.hop[i] = 0u;  // trim: in- and out-degrees
+  }
   for (long long i = first; i < t; i += step) {
     const int on = lane_on == nullptr ? 1 : __ldcg(lane_on + i);
     lanes_ran[t + i] = on;
     lanes_changed[t + i] = on;
     a.rounds[i] = 0;
+    if (a.compact) a.count[i] = 0;
   }
-  grid.sync();
+  st.sync(grid, kInit);
   int it = 0;
   while (it < a.max_iters) {
     const int p = it & 1, q = p ^ 1;
@@ -418,47 +689,60 @@ __device__ __forceinline__ int fixpoint_body(const FixArgs& a,
       a.rounds[i] += act[i];
     }
     if (first == 0) any_changed[p] = 0;
-    if (kForm == kTrim)
-      trim_edges(a, act);
+    const bool slots = it == 0 && a.compact;
+    if (slots)
+      edge_pass<kForm, true>(a, act, it);
     else
-      gather_edges<mode_of<kForm>()>(a.src, a.dst, a.live,
-                                     FixMsg<kForm>{a.state, a.mask, act, a.f, a.nv}, a.out, a.e,
-                                     a.total, a.f, a.nv, a.nv);
-    grid.sync();
+      edge_pass<kForm, false>(a, act, it);
+    st.sync(grid, slots ? kCompactPass : kEdgePass);
     Changes ch;
     int* lane_flag = lanes_changed + p * t;
-    for (long long i = first; i < n; i += step) {
-      const long long row = t == 1 ? 0 : i / fnv;
+    for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
+      const long long row = t == 1 ? 0 : quot(i, fnv, small);
       if (!act[row]) continue;
-      const long long mv = row * a.nv + (flat ? i : i % a.nv);
-      const unsigned inc = __ldcg(a.out + i);
-      a.out[i] = ident;
-      update<kForm>(a, i, row, mv, inc, hop, ch, lane_flag);
+      const unsigned inc = kForm == kTrim ? 0u : __ldcg(a.out + i);
+      // nothing arrived: the word keeps its value (trim and the hop forms
+      // still visit it; trim's degrees stay from round to round)
+      if (inc == ident && !hop && kForm != kTrim) continue;
+      if (inc != ident) a.out[i] = ident;
+      const long long mv =
+          a.f == 1 ? i : row * a.nv + (i - quot(i, a.nv, small) * a.nv);
+      update<kForm>(a, i, row, mv, inc, hop, it, ch, lane_flag);
     }
     if (hop) {
-      grid.sync();
-      for (long long i = first; i < n; i += step) {
-        const long long row = t == 1 ? 0 : i / fnv;
+      st.sync(grid, kVertexPass);
+      for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
+        const long long row = t == 1 ? 0 : quot(i, fnv, small);
         if (!act[row]) continue;
-        hop_update<kForm>(a, i, row, row * a.nv + (flat ? i : i % a.nv),
-                          ch, lane_flag);
+        const long long mv =
+            a.f == 1 ? i : row * a.nv + (i - quot(i, a.nv, small) * a.nv);
+        hop_update<kForm>(a, i, row, mv, it, ch, lane_flag);
       }
     }
     ch.flush(lane_flag, any_changed + p, s_row);
-    grid.sync();
+    st.sync(grid, hop ? kHopPass : kVertexPass);
     ++it;
     if (!__ldcg(any_changed + p)) break;
   }
+  // trim: the last round's peels are assigned (each thread its own span's
+  // words, which the scc form's next pass reads from the same thread)
+  if (kForm == kTrim)
+    for (long long i = lo + threadIdx.x; i < hi; i += kThreads)
+      if (__ldcg(static_cast<unsigned char*>(a.state) + i) == 2)
+        static_cast<unsigned char*>(a.state)[i] = 0;
   if (first == 0 && a.tally != nullptr)
     atomicAdd(a.tally + kForm, (unsigned long long)it);
   return it;
 }
 
 template <int kForm>
-__global__ void __launch_bounds__(kThreads) fixpoint_rounds(FixArgs a) {
+__global__ void __launch_bounds__(kThreads, kFixBlocks) fixpoint_rounds(
+    FixArgs a) {
   extern __shared__ unsigned char act[];
   __shared__ long long s_row;
-  fixpoint_body<kForm>(a, act, &s_row, nullptr);
+  Stamps st(a.stamps, a.n_stamps);
+  fixpoint_body<kForm>(a, act, &s_row, nullptr, st);
+  st.finish();
 }
 
 // ------------------------------------------------------- static SCC ---
@@ -468,23 +752,26 @@ __global__ void __launch_bounds__(kThreads) fixpoint_rounds(FixArgs a) {
 // (src/repro/core/scc.py:90-134), whose outer loop the port's host ran
 // with one read of ``unassigned.any()`` a round.  Each outer round, while
 // a lane has unassigned vertices and fewer than max_outer rounds have run:
-//   1. trim's fixpoint (peeled vertices become singleton SCCs);
+//   1. trim's fixpoint (peeled vertices become singleton SCCs), its first
+//      round listing the edges with both ends unassigned;
 //   2. the forward and backward sweeps from the unassigned vertices: min
 //      labels, or, with shortcut, hashed priorities with pointer doubling;
+//      the forward sweep's first round lists the edges with both ends
+//      still unassigned after trim, and the backward sweep walks that list
+//      reversed;
 //   3. done = unassigned & fwd == bwd (with shortcut: equal witnesses
 //      below nv, the label the least member id of each witness group, an
-//      atomicMin into min_id); ccid = label where done; unassigned &= ~done.
+//      atomicMin into min_id, read first: a giant component has one
+//      witness); ccid = label where done; unassigned &= ~done.
 // A grid barrier separates the phases, and each sweep is fixpoint_body
 // above, so its rounds, its cap and its tally are those of its own form.
 // A lane takes part in an outer round only while it has unassigned
-// vertices at its start, so each lane runs its solo rounds.  Bound:
-// bytes, the sum over the sweeps' rounds of one round's bytes.  Chaining
-// the three sweeps in one kernel took 108-114 registers a thread, two
-// blocks an SM; held to three blocks an SM (__launch_bounds__) the grid is
-// half as large again, and update_1m's fixpoint time a step fell from
-// 0.0162 s to 0.0137 s on an H100 (PERF.md, the kernel table).
+// vertices at its start, so each lane runs its solo rounds.  Held to
+// three blocks an SM (__launch_bounds__): chaining the three sweeps in one
+// kernel took 108-114 registers a thread unbounded, two blocks an SM.
 struct SccArgs {
-  FixArgs fix;          // src, dst, live, vid, out, hop, flags, tally
+  FixArgs fix;          // src, dst, live, vid, out, hop, flags, tally,
+                        // list, count, last
   const uint8_t* active;  // [T, nv]
   unsigned char* un;    // [T, nv] scratch: the unassigned set
   int* ccid;            // [T, nv] out
@@ -506,40 +793,46 @@ __global__ void __launch_bounds__(kThreads, 3) scc_rounds(SccArgs s) {
   extern __shared__ unsigned char act[];
   __shared__ long long s_row;
   cg::grid_group grid = cg::this_grid();
+  Stamps st(s.fix.stamps, s.fix.n_stamps);
   const long long first = blockIdx.x * (long long)kThreads + threadIdx.x;
   const long long step = (long long)gridDim.x * kThreads;
   const int t = s.fix.t, nv = s.fix.nv;
   const long long n = (long long)t * nv;
+  const bool small = n <= 0xFFFFFFFFLL;
+  long long lo, hi;
+  block_span(n, lo, hi);  // as fixpoint_body's: trim's last writes
   int* any_left = s.left + 2 * t;
   for (long long i = first; i < 2 * t; i += step) s.left[i] = 0;
   for (long long i = first; i < t; i += step) s.outer[i] = 0;
   if (first == 0) any_left[0] = any_left[1] = 0;
-  grid.sync();
+  st.sync(grid, kInit);
   {
     Changes ch;
-    for (long long i = first; i < n; i += step) {
+    for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
       const unsigned char on = s.active[i];
       s.un[i] = on;
       s.ccid[i] = kInt32Max;
-      ch.note(t == 1 ? 0 : i / nv, on, s.left);
+      ch.note(t == 1 ? 0 : quot(i, nv, small), on, s.left);
     }
     ch.flush(s.left, any_left, &s_row);
   }
-  grid.sync();
+  st.sync(grid, kSccPass);
   FixArgs trim = s.fix;
   trim.state = s.un;
   trim.ccid = s.ccid;
   trim.mask = nullptr;
   trim.rounds = s.inner;
+  trim.compact = 1;
+  trim.reverse = 0;
   FixArgs fw = trim;
   fw.mask = s.un;
   fw.state = s.fwd;
   fw.ccid = nullptr;
   fw.shortcut = 0;  // the label sweeps of scc_static have no hop
   FixArgs bw = fw;
-  bw.src = s.fix.dst;
-  bw.dst = s.fix.src;
   bw.state = s.bwd;
+  bw.compact = 0;  // the forward sweep's list, reversed
+  bw.reverse = 1;
   constexpr int kSweep = kShortcut ? kPrio : kLabel;
   int it = 0;
   while (it < s.max_outer) {
@@ -551,12 +844,12 @@ __global__ void __launch_bounds__(kThreads, 3) scc_rounds(SccArgs s) {
       s.left[q * t + i] = 0;
     }
     if (first == 0) any_left[q] = 0;
-    fixpoint_body<kTrim>(trim, act, &s_row, on);
+    fixpoint_body<kTrim>(trim, act, &s_row, on, st);
     // the sweeps' seeds: every unassigned vertex its own id (priority)
-    for (long long i = first; i < n; i += step) {
-      const long long row = t == 1 ? 0 : i / nv;
+    for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
+      const long long row = t == 1 ? 0 : quot(i, nv, small);
       if (!__ldcg(on + row)) continue;
-      const unsigned v = (unsigned)(t == 1 ? i : i % nv);
+      const unsigned v = (unsigned)(i - row * nv);
       const bool un = __ldcg(s.un + i);
       const unsigned seed = kShortcut ? (un ? v * kPrioMul : kSent32)
                                       : (un ? v : (unsigned)kInt32Max);
@@ -564,16 +857,18 @@ __global__ void __launch_bounds__(kThreads, 3) scc_rounds(SccArgs s) {
       s.bwd[i] = seed;
       if (kShortcut) s.min_id[i] = kInt32Max;
     }
-    grid.sync();
-    fixpoint_body<kSweep>(fw, act, &s_row, on);
-    fixpoint_body<kSweep>(bw, act, &s_row, on);
+    st.sync(grid, kSccPass);
+    // a sweep capped at 0 rounds lists nothing: the backward one then
+    // runs none either
+    fixpoint_body<kSweep>(fw, act, &s_row, on, st);
+    fixpoint_body<kSweep>(bw, act, &s_row, on, st);
     Changes ch;
     int* next = s.left + q * t;
     if (kShortcut) {
       // witnesses: the vertex whose priority a label is, nv for none;
       // a done vertex leaves its witness in hop for the second pass
-      for (long long i = first; i < n; i += step) {
-        const long long row = t == 1 ? 0 : i / nv;
+      for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
+        const long long row = t == 1 ? 0 : quot(i, nv, small);
         if (!__ldcg(on + row)) continue;
         unsigned w = kSent32;
         if (__ldcg(s.un + i)) {
@@ -582,14 +877,16 @@ __global__ void __launch_bounds__(kThreads, 3) scc_rounds(SccArgs s) {
           const int wb = b != kSent32 ? (int)(b * kPrioInv) : nv;
           if (wf == wb && (unsigned)wf < (unsigned)nv) {
             w = (unsigned)wf;
-            atomicMin(s.min_id + row * nv + wf, (int)(i - row * nv));
+            const int id = (int)(i - row * nv);
+            int* m = s.min_id + row * nv + wf;
+            if (__ldcg(m) > id) atomicMin(m, id);
           }
         }
         s.fix.hop[i] = w;
       }
-      grid.sync();
-      for (long long i = first; i < n; i += step) {
-        const long long row = t == 1 ? 0 : i / nv;
+      st.sync(grid, kSccPass);
+      for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
+        const long long row = t == 1 ? 0 : quot(i, nv, small);
         if (!__ldcg(on + row)) continue;
         const unsigned w = __ldcg(s.fix.hop + i);
         if (w != kSent32) {
@@ -599,8 +896,8 @@ __global__ void __launch_bounds__(kThreads, 3) scc_rounds(SccArgs s) {
         ch.note(row, w == kSent32 && __ldcg(s.un + i), next);
       }
     } else {
-      for (long long i = first; i < n; i += step) {
-        const long long row = t == 1 ? 0 : i / nv;
+      for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
+        const long long row = t == 1 ? 0 : quot(i, nv, small);
         if (!__ldcg(on + row)) continue;
         bool still = __ldcg(s.un + i);
         if (still) {
@@ -615,11 +912,12 @@ __global__ void __launch_bounds__(kThreads, 3) scc_rounds(SccArgs s) {
       }
     }
     ch.flush(next, any_left + q, &s_row);
-    grid.sync();
+    st.sync(grid, kSccPass);
     ++it;
   }
   if (first == 0 && s.fix.tally != nullptr)
     atomicAdd(s.fix.tally + kScc, (unsigned long long)it);
+  st.finish();
 }
 
 cudaError_t launched(cudaError_t err) {
@@ -747,8 +1045,9 @@ extern "C" int frontier_min_launch(const void* dst, const void* msg, void* out,
 // [T, e] and live uint8 [T, e] as in the gather form; mask uint8 [T, nv]
 // (null for trim); vid int32 [nv] (trim, scc).  Scratch: out int32 [T f
 // nv], hop int32 [T nv] (label with shortcut, prio, scc), flags int32
-// [4 T + 2].  Writes rounds int32 [T], each lane's rounds, and adds the
-// rounds run to tally[form] (uint64 [7]) unless it is null.
+// [4 T + 2], list int32 [T, e, 2] (the listed edges), count int32 [T],
+// last uint8 [T f nv].  Writes rounds int32 [T], each lane's rounds, and
+// adds the rounds run to tally[form] (uint64 [7]) unless it is null.
 //
 // The scc form (form 6, f = 1): the static SCC of the subgraph each lane's
 // mask (``active``) induces, at most max_outer outer rounds, each sweep
@@ -758,22 +1057,32 @@ extern "C" int frontier_min_launch(const void* dst, const void* msg, void* out,
 // shortcut picks the priority sweeps.  tally[6] counts the outer rounds,
 // the sweeps' rounds go to their own forms.
 //
+// For measurement only: ``stamps`` (null on the main path) takes n_stamps
+// part records (see Stamps); word 0 is the launch's grid.
+//
 // Returns the first CUDA error of the launch.
 extern "C" int frontier_fixpoint_launch(
     const void* src, const void* dst, const void* live, const void* mask,
     void* state, void* ccid, const void* vid, void* out, void* hop,
-    void* flags, void* rounds, void* tally, void* work, int t, long long e,
-    int f, int nv, int form, int shortcut, int max_iters, int max_outer,
-    void* stream) {
-  if (t < 1 || t > kMaxLanes) return (int)cudaErrorInvalidValue;
+    void* flags, void* rounds, void* tally, void* work, void* list,
+    void* count, void* last, void* stamps, int t, long long e, int f,
+    int nv, int form, int shortcut, int max_iters, int max_outer,
+    int n_stamps, void* stream) {
+  if (t < 1 || t > kMaxLanes || list == nullptr || count == nullptr ||
+      last == nullptr)
+    return (int)cudaErrorInvalidValue;
   FixArgs a{static_cast<const int*>(src), static_cast<const int*>(dst),
             static_cast<const uint8_t*>(live),
             static_cast<const uint8_t*>(mask), state,
             static_cast<int*>(ccid), static_cast<const int*>(vid),
             static_cast<unsigned*>(out), static_cast<unsigned*>(hop),
             static_cast<int*>(flags), static_cast<int*>(rounds),
-            static_cast<unsigned long long*>(tally), e, (long long)t * e, t,
-            f, nv, shortcut, max_iters};
+            static_cast<unsigned long long*>(tally),
+            static_cast<unsigned long long*>(stamps),
+            static_cast<int2*>(list), static_cast<int*>(count),
+            static_cast<unsigned char*>(last), e, (long long)t * e, t, f,
+            nv, shortcut, max_iters, stamps == nullptr ? 0 : n_stamps, 1,
+            0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (form == kScc) {
     if (f != 1 || work == nullptr) return (int)cudaErrorInvalidValue;

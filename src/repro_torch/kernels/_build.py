@@ -76,7 +76,8 @@ def build(names: Iterable[str] = SOURCES) -> None:
             continue
         os.replace(tmp, lib)
         lines = [ln.strip() for ln in out.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln
+                 or "Function properties for" in ln]
         build_log[name] = (time.perf_counter() - t0, lines)
     if failed:
         raise RuntimeError("\n".join(failed))

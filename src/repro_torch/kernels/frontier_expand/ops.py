@@ -51,8 +51,8 @@ def _lib():
     lib.frontier_gather_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.frontier_fixpoint_launch.argtypes = [ctypes.c_void_p] * 13 + [
-        ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 6 + [
+    lib.frontier_fixpoint_launch.argtypes = [ctypes.c_void_p] * 17 + [
+        ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     for fn in (lib.frontier_min_launch, lib.frontier_gather_launch,
                lib.frontier_fixpoint_launch):
@@ -225,10 +225,45 @@ def reset_fixpoint_rounds() -> None:
         t.zero_()
 
 
+def stamp_buffer(dev, records: int = 4096) -> torch.Tensor:
+    """A buffer for a fixpoint launch's part stamps (``stamps=`` of
+    :func:`frontier_fixpoint`): ``records`` grid barriers."""
+    buf = torch.zeros((records + 1, 4), dtype=torch.int64, device=dev)
+    buf[1:, 1] = -1  # the first arrival, an atomic min
+    return buf
+
+
+# the barriers' kinds, in the kernel's numbering (its enum Part)
+PARTS = {1: "init", 2: "edge", 3: "vertex", 4: "hop", 5: "scc", 6: "compact"}
+
+
+def fixpoint_parts(buf: torch.Tensor) -> dict:
+    """A stamped launch's time by part, in microseconds (%globaltimer):
+    per barrier kind, ``pass_us`` from the barrier before it to the last
+    block's arrival, ``wait_us`` from that arrival to the grid leaving the
+    barrier, ``spread_us`` between the first and the last block's arrival,
+    and ``n`` the barriers of that kind; ``grid`` the launch's blocks and
+    ``total_us`` its first to its last stamp."""
+    b = buf.cpu().tolist()
+    grid, n, t0, t1 = b[0]
+    parts = {}
+    prev = t0
+    for kind, first, last, after in b[1:1 + n]:
+        p = parts.setdefault(PARTS.get(kind, str(kind)), dict(
+            n=0, pass_us=0.0, wait_us=0.0, spread_us=0.0))
+        p["n"] += 1
+        p["pass_us"] += (last - prev) / 1e3
+        p["wait_us"] += (after - last) / 1e3
+        p["spread_us"] += (last - first) / 1e3
+        prev = after
+    return dict(grid=grid, barriers=n, total_us=(t1 - t0) / 1e3,
+                parts=parts)
+
+
 def frontier_fixpoint(form: str, src: torch.Tensor, dst: torch.Tensor,
                       live: torch.Tensor, mask, state, max_iters: int, *,
                       shortcut: bool = False, vid=None, max_outer: int = 0,
-                      impl: str = "auto"):
+                      impl: str = "auto", stamps=None):
     """Every round of the fixpoint ``form`` (``ref.FORMS``) until a round
     changes nothing or ``max_iters`` rounds have run, as JAX's
     ``lax.while_loop`` runs it: ``(state, rounds)``, rounds int32 (0-d,
@@ -250,7 +285,9 @@ def frontier_fixpoint(form: str, src: torch.Tensor, dst: torch.Tensor,
 
     On the card one cooperative launch runs every round with no host
     read; edges whose ids fall outside ``[0, NV)`` are dropped (the plain
-    version's trim takes none).
+    version's trim takes none).  For measurement only: ``stamps``
+    (:func:`stamp_buffer`) takes the launch's part stamps
+    (:func:`fixpoint_parts`).
     """
     if form not in ref.FORMS:
         raise ValueError(f"unknown form {form!r}; expected one of "
@@ -273,7 +310,8 @@ def frontier_fixpoint(form: str, src: torch.Tensor, dst: torch.Tensor,
     t = src.shape[0] if lanes else 1
     if form == "scc":
         return _scc_launch(src, dst, live, mask.contiguous(), t, nd,
-                           int(max_iters), int(max_outer), shortcut)
+                           int(max_iters), int(max_outer), shortcut,
+                           _probe(stamps))
     f, dtype = _FORM_STATE[form]
     rows = f is None or f > 1
     # the state the launch rewrites in place, as bytes or 32-bit words
@@ -305,18 +343,22 @@ def frontier_fixpoint(form: str, src: torch.Tensor, dst: torch.Tensor,
     if form == "prio":
         work = ref.u32_to_words(work)
     out = torch.empty(t * f * nv, dtype=torch.int32, device=dev)
+    # a round's labels before the hop; trim's out-degrees (out its in-)
     hop = (torch.empty(t * nv, dtype=torch.int32, device=dev)
-           if form == "prio" or (form == "label" and shortcut) else out)
+           if form in ("prio", "trim") or (form == "label" and shortcut)
+           else out)
     flags = torch.empty(4 * t + 2, dtype=torch.int32, device=dev)
     rounds = torch.empty(t, dtype=torch.int32, device=dev)
     tally = _tally(dev)
+    lists = _edge_lists(t, src.shape[-1], t * f * nv, dev)
+    probe = _probe(stamps)
     _build.check(_lib().frontier_fixpoint_launch(
         src.data_ptr(), dst.data_ptr(), live.data_ptr(), mask_ptr,
         work.data_ptr(), aux, vid_ptr, out.data_ptr(), hop.data_ptr(),
-        flags.data_ptr(), rounds.data_ptr(), tally.data_ptr(), 0, t,
-        src.shape[-1], f, nv,
+        flags.data_ptr(), rounds.data_ptr(), tally.data_ptr(), 0,
+        *(x.data_ptr() for x in lists), probe[0], t, src.shape[-1], f, nv,
         ref.FORMS.index(form), int(shortcut), max(int(max_iters), 0), 0,
-        _build.stream_ptr(out)), "frontier_fixpoint")
+        *probe[1:], _build.stream_ptr(out)), "frontier_fixpoint")
     _count_fixpoint(lanes)
     if form == "prio":
         work = ref.words_to_u32(work)
@@ -331,8 +373,26 @@ def _count_fixpoint(lanes: bool, scc: bool = False) -> None:
                  *(("scc_launches",) if scc else ()))
 
 
+def _edge_lists(t: int, e: int, words: int, dev) -> tuple:
+    """A launch's edge-list scratch: (list int32 [T, E, 2], the listed
+    edges, (src, dst) a row, room for every slot; count int32 [T]; last
+    uint8 [words], the round each state word last changed in).  Inside a
+    step graph's capture these come from the graph's pool, whose blocks
+    the launches of one replay share in turn."""
+    return (torch.empty((t, e, 2), dtype=torch.int32, device=dev),
+            torch.empty(t, dtype=torch.int32, device=dev),
+            torch.empty(words, dtype=torch.uint8, device=dev))
+
+
+def _probe(stamps) -> tuple:
+    """The launch's measurement arguments: (stamps pointer, records)."""
+    if stamps is None:
+        return 0, 0
+    return stamps.data_ptr(), stamps.shape[0] - 1
+
+
 def _scc_launch(src, dst, live, active, t, nd, max_inner, max_outer,
-                shortcut):
+                shortcut, probe=(0, 0)):
     """The scc form's launch: (ccid, outer rounds)."""
     dev = active.device
     _build.require(active, "mask", torch.bool, nd, dev)
@@ -353,12 +413,14 @@ def _scc_launch(src, dst, live, active, t, nd, max_inner, max_outer,
     rounds = torch.empty(t, dtype=torch.int32, device=dev)
     work = torch.empty(3 * n + 3 * t + 2, dtype=torch.int32, device=dev)
     tally = _tally(dev)
+    lists = _edge_lists(t, src.shape[-1], n, dev)
     _build.check(_lib().frontier_fixpoint_launch(
         src.data_ptr(), dst.data_ptr(), live.data_ptr(), active.data_ptr(),
         un.data_ptr(), ccid.data_ptr(), vid.data_ptr(), out.data_ptr(),
         hop.data_ptr(), flags.data_ptr(), rounds.data_ptr(),
-        tally.data_ptr(), work.data_ptr(), t, src.shape[-1], 1, nv,
-        ref.FORMS.index("scc"), int(shortcut), max(max_inner, 0),
-        max(max_outer, 0), _build.stream_ptr(ccid)), "frontier_fixpoint")
+        tally.data_ptr(), work.data_ptr(), *(x.data_ptr() for x in lists),
+        probe[0], t, src.shape[-1], 1, nv, ref.FORMS.index("scc"),
+        int(shortcut), max(max_inner, 0), max(max_outer, 0), *probe[1:],
+        _build.stream_ptr(ccid)), "frontier_fixpoint")
     _count_fixpoint(nd == 2, scc=True)
     return ccid, rounds if nd == 2 else rounds[0]

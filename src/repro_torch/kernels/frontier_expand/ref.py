@@ -16,7 +16,10 @@ written once: the kernel's plain version runs it over the plain gather,
 ``core/reach.py``'s per-round loop over the gather's wrapper.
 :func:`scc_loop` is the ``scc`` form's outer loop, written once too: the
 plain version runs it over the plain fixpoints, ``core/scc.py`` over
-``core/reach.py``'s for CPU tensors and DTensors.
+``core/reach.py``'s for CPU tensors and DTensors.  :func:`fixpoint_schedule`
+is the kernel's own schedule in plain torch (the first round over every
+slot, later rounds over the listed edges, only changed sources sending),
+which the CPU tests hold to the JAX sweeps exactly.
 """
 from __future__ import annotations
 
@@ -383,3 +386,42 @@ def frontier_fixpoint(form: str, src, dst, live, mask, state,
         tally[form] = tally.get(form, 0) + int(out[1].max()
                                                if out[1].dim() else out[1])
     return out
+
+
+def fixpoint_schedule(form: str, src, dst, live, mask, state,
+                      max_iters: int, *, shortcut: bool = False, vid=None,
+                      max_outer: int = 0):
+    """The fixpoint kernel's schedule in plain torch: (state, rounds) as
+    :func:`frontier_fixpoint` returns them.  The first round gathers along
+    every live slot whose ids fall in ``[0, NV)`` and lists those whose
+    ends both lie inside ``mask`` (trim: inside the unassigned set it
+    starts from); every later round gathers along the listed edges only,
+    and only a source word that changed in the previous round sends (its
+    value replaced by the gather's identity otherwise).  ``scc`` is
+    :func:`scc_loop` over this schedule, as the kernel lists the edges of
+    each sweep."""
+    if form == "scc":
+        return scc_loop(src, dst, live, mask, max_outer, max_iters,
+                        shortcut=shortcut, fix=fixpoint_schedule)
+    first = state[0] if form == "trim" else state
+    nv = first.shape[-1]
+    inside = first if form == "trim" else mask
+    ok = live & (src >= 0) & (src < nv) & (dst >= 0) & (dst < nv)
+    listed = ok & take(inside, src.clamp(0, nv - 1)) & take(
+        inside, dst.clamp(0, nv - 1))
+    ident = 0 if form == "or" else SENT_WORD
+    changed = []  # the words the previous round changed; none: all send
+
+    def only_changed(s, d, lv, val, nv_, mode="min"):
+        if changed:
+            val = torch.where(changed[-1], val, ident)
+        return gather(s, d, lv, val, nv_, mode)
+
+    def body(st):
+        nxt, ch = round_body(form, src, dst, listed if changed else ok,
+                             mask, st, shortcut=shortcut, vid=vid,
+                             gather=only_changed)
+        # trim's gather is no message: it takes the listed edges alone
+        changed.append(nxt[0] != st[0] if form == "trim" else nxt != st)
+        return nxt, ch
+    return fixpoint_loop(body, state, max_iters, src.dim() == 2)

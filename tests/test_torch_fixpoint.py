@@ -8,8 +8,12 @@ sweeps take the per-round loop; both are held to the JAX functions on the
 same inputs, made from a seeded numpy generator: states and round counts
 exactly, including a chain deeper than ``max_iters`` (the cap ends the
 loop on an unconverged state) and tenant lanes of different depths, each
-equal to its solo JAX run.  The kernel itself is held to these on the
-card by ``tests/test_torch_gpu.py`` (marker ``gpu``).
+equal to its solo JAX run.  So is the kernel's own schedule in plain
+torch (``ref.fixpoint_schedule``: the first round over every slot, later
+rounds over the listed edges with only the sources that changed in the
+previous round sending), which shows on the CPU that the skip is exact.
+The kernel itself is held to these on the card by
+``tests/test_torch_gpu.py`` (marker ``gpu``).
 """
 import jax
 import jax.numpy as jnp
@@ -217,6 +221,60 @@ def test_lanes_of_different_depths_match_solo_jax(form, shortcut, cap):
             lane = (tuple(x[t] for x in st) if form == "trim" else st[t])
             assert _equal(_as_jax_state(form, lane), w), (fn, t)
     assert len({w[1] for w in want}) > 1  # the lanes stop apart
+
+
+@pytest.mark.parametrize("cap", [CAP_SHORT, CAP_LONG])
+@pytest.mark.parametrize("form,shortcut", FORMS)
+def test_schedule_matches_jax(form, shortcut, cap):
+    """The kernel's schedule (listed edges, only changed sources
+    sending after the first round) == the JAX function: state and rounds,
+    converged and cut by the cap."""
+    g = _graph(3)
+    want, want_n = _jax_fixpoint(form, shortcut, g, cap)
+    st, n = _run(fref.fixpoint_schedule, form, shortcut, g, cap)
+    assert n.dtype == torch.int32 and n.dim() == 0 and int(n) == want_n
+    assert _equal(_as_jax_state(form, st), want)
+
+
+@pytest.mark.parametrize("cap", [CAP_SHORT, CAP_LONG])
+@pytest.mark.parametrize("form,shortcut", FORMS)
+def test_schedule_lanes_match_solo_jax(form, shortcut, cap):
+    """The kernel's schedule over tenant lanes whose chains differ in
+    depth: every lane's state and rounds equal its solo JAX run."""
+    graphs = [_graph(10 + i, depth=d) for i, d in enumerate((0, 5, 20, 60))]
+    src, dst, live = (torch.from_numpy(np.stack([g[i] for g in graphs]))
+                      for i in range(3))
+    ins = [_inputs(form, g) for g in graphs]
+    mask = None if form == "trim" else torch.stack([m for m, _ in ins])
+    init = _stack(form, [s for _, s in ins])
+    want = [_jax_fixpoint(form, shortcut, g, cap) for g in graphs]
+    st, n = fref.fixpoint_schedule(form, src, dst, live, mask, init, cap,
+                                   shortcut=shortcut,
+                                   vid=torch.arange(NV, dtype=torch.int32))
+    assert n.tolist() == [w[1] for w in want]
+    for t, (w, _) in enumerate(want):
+        lane = (tuple(x[t] for x in st) if form == "trim" else st[t])
+        assert _equal(_as_jax_state(form, lane), w), t
+
+
+@pytest.mark.parametrize("shortcut", [False, True])
+def test_schedule_scc_matches_plain(shortcut):
+    """The scc form over the kernel's schedule == its plain version
+    (held to JAX's ``scc_static`` in ``test_torch_step_graph.py``):
+    labels and outer rounds, at a cap that cuts the outer loop and past
+    it, on one graph and on lanes."""
+    g = _graph(6)
+    src, dst, live, mask = (torch.from_numpy(x) for x in g[:4])
+    lanes = [torch.stack([x, x.roll(7)]) for x in (src, dst, live, mask)]
+    for args in ((src, dst, live, mask), lanes):
+        for max_outer in (1, NV):
+            want = fref.scc_loop(*args, max_outer, CAP_LONG,
+                                 shortcut=shortcut)
+            got = fref.fixpoint_schedule("scc", *args, None, CAP_LONG,
+                                         shortcut=shortcut,
+                                         max_outer=max_outer)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
 
 
 def test_fix_on_cpu_takes_the_per_round_loop(monkeypatch):

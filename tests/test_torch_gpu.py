@@ -133,11 +133,17 @@ FIX_FORMS = [("reach", False), ("pair", False), ("label", False),
              ("trim", False)]
 
 
-def _fix_case(form, seed, nv, e, depth):
+# slot and mask patterns that the edge list's making must get right
+EDGE_CASES = ("no live edge", "every slot live", "tombstones",
+              "junk and out-of-range ids", "empty mask", "full mask")
+
+
+def _fix_case(form, seed, nv, e, depth, case=None):
     """One graph of ``form``'s fixpoint on the CPU: a chain 0 -> ... ->
     depth in sparse random edges (none leaves the chain), dead slots (-1
-    junk ids but for trim), a mask with holes off the chain.  Returns
-    (src, dst, live, mask, state)."""
+    junk ids but for trim), a mask with holes off the chain; ``case`` (one
+    of EDGE_CASES) reshapes the slots or the mask first.  Returns (src,
+    dst, live, mask, state)."""
     rng = np.random.default_rng(seed)
     src = rng.integers(depth + 1, nv, e).astype(np.int32)
     dst = rng.integers(0, nv, e).astype(np.int32)
@@ -149,6 +155,22 @@ def _fix_case(form, seed, nv, e, depth):
         src[-3:] = -1
     mask = rng.random(nv) < 0.9
     mask[:depth + 1] = True
+    if case == "no live edge":
+        live[:] = False
+    elif case == "every slot live":
+        live[:] = True
+        src[src < 0] = 0
+    elif case == "tombstones":  # dead slots that keep their ids
+        live = rng.random(e) < 0.4
+        live[:depth] = True
+        src[src < 0] = 1
+    elif case == "junk and out-of-range ids":
+        src[::7], dst[::11], src[::13], dst[::17] = -1, -1, nv, nv + 5
+        live[::5] = True
+    elif case == "empty mask":
+        mask[:] = False
+    elif case == "full mask":
+        mask[:] = True
     seeds = torch.from_numpy(rng.random((40, nv)) < 2.0 / nv)
     seeds[:, 0] = True
     m = torch.from_numpy(mask)
@@ -225,6 +247,42 @@ def test_fixpoint_kernel(cuda, form, shortcut, t_n, cap):
             assert int(solo[1]) == int(got[1][t])
             assert _same(solo[0], tuple(y[t] for y in got[0])
                          if form == "trim" else got[0][t])
+
+
+@pytest.mark.parametrize("t_n", [None, 256])
+@pytest.mark.parametrize("form,shortcut,case", [
+    (f, sc, c) for f, sc in FIX_FORMS
+    for c in EDGE_CASES + ("every slot live, cap 3",)
+    # trim's callers pass no junk ids (its plain version takes none)
+    if not (f == "trim" and c.startswith("junk"))])
+def test_fixpoint_edge_list_cases(cuda, form, shortcut, case, t_n):
+    """The launch lists its edges in its first round and later rounds
+    read only the list, only changed sources sending: held exactly (state
+    and rounds) to the plain version on CPU copies and to the schedule's
+    plain model where the slots, ids or mask make the list go wrong: no
+    live edge, every slot live, tombstones, junk and out-of-range ids
+    (trim's callers pass none), an empty and a full mask; one graph and
+    256 lanes, every fifth lane's mask empty, so it stops after its first
+    round beside lanes that run on; the cap of 3 rounds hit."""
+    cap = 3 if case.endswith("cap 3") else 5000
+    case = case.replace(", cap 3", "")
+    if t_n is None:
+        args = _fix_case(form, 7, 3000, 4000, 400, case)
+    else:
+        args = _fix_stack([_fix_case(
+            form, 300 + i, 64, 160, i % 60,
+            "empty mask" if i % 5 == 0 and case != "empty mask" else case)
+            for i in range(t_n)])
+    vid = torch.arange(args[-1][0].shape[-1] if form == "trim"
+                       else args[-1].shape[-1], dtype=torch.int32)
+    card = [_to(x, cuda) for x in args]
+    got = fops.frontier_fixpoint(form, *card, cap, shortcut=shortcut,
+                                 vid=vid.to(cuda))
+    for fn in (fref.frontier_fixpoint, fref.fixpoint_schedule):
+        want = fn(form, *args, cap, shortcut=shortcut, vid=vid)
+        assert _same(got[0], want[0]) and _same(got[1], want[1]), fn
+    if cap == 3 and form != "trim":
+        assert int(got[1].max()) == 3  # the chain runs past the cap
 
 
 def test_fixpoints_read_nothing_and_replay_in_a_graph(cuda):
@@ -1226,6 +1284,75 @@ def test_scc_form_matches_plain(cuda, shortcut, t_n, max_outer):
                 "scc", *(x[t] for x in card), None, 500, shortcut=shortcut,
                 max_outer=max_outer)
             assert torch.equal(solo, got[t]) and int(n) == int(outer[t])
+
+
+SCC_CASES = ("one outer round assigns everything", "no live edge",
+             "tombstones")
+
+
+def _scc_edge_case(seed, nv, e, case):
+    """(src, dst, live, active) of one scc-form graph on the CPU: a cycle
+    through every vertex plus random chords, all active (trim peels
+    nothing and the first outer round assigns every vertex); no live
+    slot (trim peels every vertex in its first round); or the chained
+    2-cycles of ``_scc_case`` with dead slots that keep their ids."""
+    if case == "tombstones":
+        src, dst, live, active = _scc_case(seed, nv, e, 6)
+        rng = np.random.default_rng(seed)
+        live = torch.from_numpy(rng.random(src.shape[0]) < 0.5)
+        live[:17] = True  # the chain's 6 2-cycles and 5 links
+        return [src, dst, live, active]
+    rng = np.random.default_rng(seed)
+    ring = np.arange(nv, dtype=np.int32)
+    src = np.concatenate([ring, rng.integers(0, nv, e).astype(np.int32)])
+    dst = np.concatenate([np.roll(ring, -1),
+                          rng.integers(0, nv, e).astype(np.int32)])
+    live = np.full(src.shape[0], case != "no live edge")
+    return [torch.from_numpy(x) for x in (src, dst, live,
+                                          np.ones(nv, dtype=bool))]
+
+
+@pytest.mark.parametrize("t_n", [None, 256])
+@pytest.mark.parametrize("case", SCC_CASES)
+@pytest.mark.parametrize("shortcut", [False, True])
+def test_scc_form_edge_list_cases(cuda, shortcut, case, t_n):
+    """The scc form lists the edges afresh in each outer round's trim and
+    forward sweep: held exactly (labels, outer rounds, rounds by form) to
+    its plain version on CPU copies and to the schedule's plain model
+    where one outer round assigns every vertex, where no slot is live,
+    and over tombstones; one graph and 256 lanes (every fifth lane with
+    no active vertex)."""
+    if t_n is None:
+        args = _scc_edge_case(5, 2000, 3000, case)
+    else:
+        cases = [_scc_edge_case(500 + i, 48, 60, case) for i in range(t_n)]
+        e_max = max(c[0].shape[0] for c in cases)
+        for i, c in enumerate(cases):
+            if i % 5 == 0:
+                c[3][:] = False
+            pad = e_max - c[0].shape[0]  # dead slots to one row length
+            for k in range(3):
+                c[k] = torch.cat([c[k], torch.zeros(pad, dtype=c[k].dtype)])
+        args = [torch.stack(list(c)) for c in zip(*cases)]
+    card = [x.to(cuda) for x in args]
+    fops.reset_fixpoint_rounds()
+    got, outer = fops.frontier_fixpoint("scc", *card, None, 500,
+                                        shortcut=shortcut, max_outer=300)
+    rounds = fops.fixpoint_rounds()
+    tally = {}
+    want, want_outer = fref.frontier_fixpoint(
+        "scc", *args, None, 500, shortcut=shortcut, max_outer=300,
+        tally=tally)
+    model = fref.fixpoint_schedule("scc", *args, None, 500,
+                                   shortcut=shortcut, max_outer=300)
+    for lab, out_n in ((want, want_outer), model):
+        assert torch.equal(got.cpu(), lab) and torch.equal(outer.cpu(),
+                                                           out_n)
+    assert {k: n for k, n in rounds.items() if n} == \
+        {k: n for k, n in tally.items() if n}
+    if case.startswith("one outer"):
+        assert int(outer.max()) == 1
+        assert bool((got.cpu() != 2 ** 31 - 1).any())
 
 
 def _tier_cfg(name):
