@@ -47,6 +47,7 @@ from typing import Any, Iterable, Iterator, List, NamedTuple, Sequence, \
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.api.ops import (CommunityOf, CommunitySizes, Op, QueryOp,
                            SccMembers, UpdateOp, encode_updates)
 from repro_torch.fault import errors as fault_errors
@@ -195,6 +196,7 @@ class GraphClient:
         self._leader_resolver = leader_resolver
         self.session_id = f"gc{next(_SESSION_IDS)}"
         self._seq = 0
+        self._query_requests = 0  # numbers the traced query requests
         self.retries = 0
         self.reroutes = 0
         self.deadline_failures = 0
@@ -280,35 +282,47 @@ class GraphClient:
         results: List[Result] = []
         eff_deadline = self._deadline_s if deadline_s is None \
             else deadline_s
-        for cat, run in _runs(ops):
-            if cat == "update":
-                results.extend(self._apply_updates(run, eff_deadline))
-                continue
-            min_gen = self._min_gen(consistency)
-            self.queries_submitted += len(run)
+        tid = self._trace_id(ops) if trace.enabled() else None
+        with trace.span("client.submit_many", tid):
+            for cat, run in _runs(ops):
+                if cat == "update":
+                    results.extend(self._apply_updates(run, eff_deadline))
+                    continue
+                min_gen = self._min_gen(consistency)
+                self.queries_submitted += len(run)
 
-            def attempt(remaining, cat=cat, run=run, min_gen=min_gen):
-                bfut = self._submit_query_run(cat, run, min_gen)
-                return self._broker.resolve(bfut, min_gen=min_gen,
-                                            timeout=remaining)
-            snap = self._with_retry(attempt, eff_deadline)
-            # run-level value decode (one C-level conversion per run, not
-            # one isinstance chain + numpy index per op)
-            gen = int(snap.gen)
-            if cat == "community_sizes":
-                hist = np.asarray(snap.value)
-                results.extend(Result(op, hist, gen) for op in run)
-            elif cat == "scc_members":
-                masks = np.asarray(snap.value)
-                results.extend(Result(op, masks[i], gen)
-                               for i, op in enumerate(run))
-            else:  # bool / int lanes
-                vals = snap.value.tolist()
-                results.extend(Result(op, val, gen)
-                               for op, val in zip(run, vals))
+                def attempt(remaining, cat=cat, run=run, min_gen=min_gen):
+                    bfut = self._submit_query_run(cat, run, min_gen)
+                    with trace.span("client.wait", wait=True):
+                        return self._broker.resolve(bfut, min_gen=min_gen,
+                                                    timeout=remaining)
+                snap = self._with_retry(attempt, eff_deadline)
+                # run-level value decode (one C-level conversion per run,
+                # not one isinstance chain + numpy index per op)
+                with trace.span("client.results"):
+                    gen = int(snap.gen)
+                    if cat == "community_sizes":
+                        hist = np.asarray(snap.value)
+                        results.extend(Result(op, hist, gen) for op in run)
+                    elif cat == "scc_members":
+                        masks = np.asarray(snap.value)
+                        results.extend(Result(op, masks[i], gen)
+                                       for i, op in enumerate(run))
+                    else:  # bool / int lanes
+                        vals = snap.value.tolist()
+                        results.extend(Result(op, val, gen)
+                                       for op, val in zip(run, vals))
         return results
 
     # ---------------------------------------------------------- internals --
+
+    def _trace_id(self, ops: Sequence[Op]) -> str:
+        """The trace id of a request: ``<session>/<seq>`` of its first
+        update chunk, else ``<session>/q<n>`` (the n-th query request)."""
+        if ops and isinstance(ops[0], UpdateOp):
+            return f"{self.session_id}/{self._seq + 1}"
+        self._query_requests += 1
+        return f"{self.session_id}/q{self._query_requests}"
 
     def _min_gen(self, consistency) -> int:
         c = self._consistency if consistency is None else consistency
@@ -389,7 +403,8 @@ class GraphClient:
 
     def _apply_updates(self, run: List[Op],
                        deadline_s: float | None = None) -> List[Result]:
-        kind, u, v = encode_updates(run)
+        with trace.span("client.encode"):
+            kind, u, v = encode_updates(run)
         # one idempotency key per chunk: a retry re-submits the SAME
         # (session, seq), so a first attempt that committed but lost its
         # ack (fault after the WAL append) is deduped, never re-applied
@@ -404,8 +419,9 @@ class GraphClient:
             else deadline_s)
         self._token = max(self._token, gen)
         self.updates_submitted += len(run)
-        return [Result(op, val, gen)
-                for op, val in zip(run, np.asarray(ok).tolist())]
+        with trace.span("client.results"):
+            return [Result(op, val, gen)
+                    for op, val in zip(run, np.asarray(ok).tolist())]
 
     def _submit_query_run(self, kind: str, run: List[Op], min_gen: int):
         if kind == "community_sizes":

@@ -47,6 +47,7 @@ from typing import Dict, List, NamedTuple, Sequence, Set
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.core import service as svc_mod
 from repro_torch.fault import errors as fault_errors
 from repro_torch.fault.inject import maybe_stall
@@ -62,6 +63,9 @@ class _Req(NamedTuple):
     v: np.ndarray
     min_gen: int
     fut: Future
+    # the tracer's (submit time ns, (span id, trace id) of the submitting
+    # span) while it is on, else None
+    traced: tuple | None = None
 
 
 class QueryBroker:
@@ -110,10 +114,13 @@ class QueryBroker:
         if u.shape != v.shape:
             raise ValueError(f"u{u.shape} and v{v.shape} differ in shape")
         fut: Future = Future()
+        traced = (trace.now(), trace.current()) if trace.enabled() \
+            else None
         with self._cv:
             if self._stopping:
                 raise fault_errors.BrokerStopped("QueryBroker is stopped")
-            self._pending[kind].append(_Req(u, v, int(min_gen), fut))
+            self._pending[kind].append(_Req(u, v, int(min_gen), fut,
+                                            traced))
             self._cv.notify()
         return fut
 
@@ -215,12 +222,19 @@ class QueryBroker:
         served.  Requests still waiting on a commit are re-queued (or
         failed, with ``fail_waiting=True`` -- the stop path)."""
         maybe_stall("broker_flush")
+        flush_span = trace.span("broker.flush")
         with self._cv:
             batch = {k: reqs for k, reqs in self._pending.items() if reqs}
             for k in batch:
                 self._pending[k] = []
         if not batch:
             return 0
+        t_collect = trace.now()
+        with flush_span:
+            return self._serve(batch, fail_waiting, flush_span, t_collect)
+
+    def _serve(self, batch, fail_waiting, flush_span, t_collect) -> int:
+        """Answer the collected ``batch`` (the body of :meth:`flush`)."""
         # Pin AFTER collecting the batch: a reader already answered at gen
         # g resubmits only after its result arrived, hence after the flush
         # that pinned g -- commits are monotone, so this pin sees >= g.
@@ -261,6 +275,12 @@ class QueryBroker:
         for reqs in ready.values():  # leaving the pending system for good
             for r in reqs:
                 self._waited.discard(r.fut)
+                if r.traced is not None:  # its wait ends at this flush
+                    t0, ctx = r.traced
+                    parent, tid = ctx if ctx else (0, None)
+                    trace.record("broker.queued", t0, t_collect, tid,
+                                 parent, wait=True,
+                                 attrs={"flush": flush_span.id})
         try:
             served = 0
             for kind, reqs in ready.items():
@@ -273,6 +293,8 @@ class QueryBroker:
             raise
         self.flushes += 1
         self.served += served
+        flush_span.set("requests", sum(len(r) for r in ready.values()))
+        flush_span.set("queries", served)
         return served
 
     def _flush_kind(self, kind, reqs: List[_Req], st, cfg, gen) -> int:
@@ -307,10 +329,11 @@ class QueryBroker:
             else:
                 out[sl] = svc_mod.members_on(st, cfg, pu)[:k]
         pos = 0
-        for r in reqs:
-            k = r.u.shape[0]
-            r.fut.set_result(svc_mod.Snapshot(out[pos:pos + k], gen))
-            pos += k
+        with trace.span("broker.distribute"):
+            for r in reqs:
+                k = r.u.shape[0]
+                r.fut.set_result(svc_mod.Snapshot(out[pos:pos + k], gen))
+                pos += k
         return n
 
     # ------------------------------------------------------- dispatcher ---

@@ -339,13 +339,7 @@ class Replica:
         return None
 
     def stats(self) -> dict:
-        out = {f"replica{self.replica_id}_{k}": val
-               for k, val in self.broker.stats().items()}
-        out[f"replica{self.replica_id}_gen"] = self.gen
-        out[f"replica{self.replica_id}_applied"] = self.applied_records
-        out[f"replica{self.replica_id}_resyncs"] = self.resyncs
-        out[f"replica{self.replica_id}_healthy"] = self.healthy
-        return out
+        return {f"replica{self.replica_id}_gen": self.gen}
 
 
 class ReplicaSet:

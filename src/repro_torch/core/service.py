@@ -34,6 +34,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import community, dynamic, edge_table as et
 from repro_torch.core import graph_state as gs
 from repro_torch.core import reach
@@ -41,6 +42,12 @@ from repro_torch.core.sync import SYNCS
 from repro_torch.fault import errors as fault_errors
 
 _MAX_GROW_ROUNDS = 16
+# where the update path reads the card back (``SCCService.host_reads``):
+# a super-chunk's or a step's outputs, the compaction test's fill count,
+# the grow's fill counts, the replay's failed-lane test and the proactive
+# grow's probe
+HOST_READ_SITES = ("read_back", "compact_check", "grow", "replay",
+                   "proactive_grow")
 
 
 class Snapshot(NamedTuple):
@@ -63,17 +70,19 @@ def _reachable_batch(state: gs.GraphState, u, v, max_inner: int,
     """bool[Q]: u[i] ~> v[i] over live edges (u == v and alive counts)."""
     nv = state.ccid.shape[0]
     q = u.shape[0]
-    uu = u.clamp(0, nv - 1).long()
-    vv = v.clamp(0, nv - 1).long()
-    rows = torch.arange(q, device=u.device)
-    src, dst, live = gs.edge_coo(state)
-    seeds = torch.zeros((q, nv), dtype=torch.bool, device=u.device)
-    seeds[rows, uu] = True
-    reached, _ = reach.multi_forward_reach(src, dst, live, seeds,
-                                           state.v_alive, max_inner,
-                                           impl=impl)
-    ok = state.v_alive[uu] & state.v_alive[vv]
-    return ok & reached[rows, vv]
+    with trace.span("query.seeds"):
+        uu = u.clamp(0, nv - 1).long()
+        vv = v.clamp(0, nv - 1).long()
+        rows = torch.arange(q, device=u.device)
+        src, dst, live = gs.edge_coo(state)
+        seeds = torch.zeros((q, nv), dtype=torch.bool, device=u.device)
+        seeds[rows, uu] = True
+    with trace.span("query.sweep"):
+        reached, _ = reach.multi_forward_reach(src, dst, live, seeds,
+                                               state.v_alive, max_inner,
+                                               impl=impl)
+        ok = state.v_alive[uu] & state.v_alive[vv]
+        return ok & reached[rows, vv]
 
 
 def _members_batch(state: gs.GraphState, u) -> torch.Tensor:
@@ -101,7 +110,9 @@ def reachable_on(state: gs.GraphState, cfg: gs.GraphConfig, u, v
     res = _reachable_batch(state, _ids(u, state.device),
                            _ids(v, state.device), cfg.max_inner,
                            impl=cfg.sparse_impl)
-    return res.cpu().numpy() & _ids_in_range(u, cfg.n_vertices) \
+    with trace.span("query.read_back", wait=True):
+        res = res.cpu().numpy()
+    return res & _ids_in_range(u, cfg.n_vertices) \
         & _ids_in_range(v, cfg.n_vertices)
 
 
@@ -183,6 +194,8 @@ class SCCService:
         self.repair_tier_steps = {name: 0 for name in dynamic.TIER_NAMES}
         self.repair_region_v_max = 0
         self.repair_region_e_max = 0
+        # device-to-host reads on the update path, by site
+        self.host_reads = {site: 0 for site in HOST_READ_SITES}
 
     # ------------------------------------------------------------ state ---
 
@@ -224,19 +237,25 @@ class SCCService:
     def _apply_ops(self, kind, u, v, *, session=None, seq=None):
         """GraphClient entry: apply a chunk and report the commit gen it
         is covered by; ``(session, seq)`` dedups a re-submitted chunk."""
-        with self._apply_lock:
-            if session is not None:
-                hit = self._session_results.get(session)
-                if hit is not None and hit[0] == seq:
-                    self.deduped_resubmits += 1
-                    return hit[1], hit[2]
-            ok = self._apply_chunk(kind, u, v)
-            if session is not None:
-                self._session_results[session] = (seq, ok, self.gen)
-                self._session_results.move_to_end(session)
-                while len(self._session_results) > self._session_window:
-                    self._session_results.popitem(last=False)
-            return ok, self.gen
+        with trace.span("service.apply"):
+            with trace.span("service.lock_wait", wait=True):
+                self._apply_lock.acquire()
+            try:
+                if session is not None:
+                    hit = self._session_results.get(session)
+                    if hit is not None and hit[0] == seq:
+                        self.deduped_resubmits += 1
+                        return hit[1], hit[2]
+                ok = self._apply_chunk(kind, u, v)
+                if session is not None:
+                    self._session_results[session] = (seq, ok, self.gen)
+                    self._session_results.move_to_end(session)
+                    while len(self._session_results) > \
+                            self._session_window:
+                        self._session_results.popitem(last=False)
+                return ok, self.gen
+            finally:
+                self._apply_lock.release()
 
     _STAT_ATTRS = ("grow_count", "proactive_grows", "replayed_ops",
                    "compaction_count", "pipelined_chunks",
@@ -278,11 +297,13 @@ class SCCService:
                         ok = np.zeros(kind.shape[0], bool)
                     else:  # prefix super-chunks stay applied
                         self._state, self._gen = restore, restore_gen
-                    for sl, ops in self._sched.chunks(kind[start:],
-                                                      u[start:], v[start:]):
-                        n_real = sl.stop - sl.start
-                        ok[start + sl.start:start + sl.start + n_real] = \
-                            self._apply_padded(ops)[:n_real]
+                    with trace.span("service.replay"):
+                        for sl, ops in self._sched.chunks(
+                                kind[start:], u[start:], v[start:]):
+                            n_real = sl.stop - sl.start
+                            ok[start + sl.start:
+                               start + sl.start + n_real] = \
+                                self._apply_padded(ops)[:n_real]
                 else:
                     self.pipelined_chunks += 1
                 self._live_ub = min(
@@ -323,6 +344,7 @@ class SCCService:
             return
         if self._live_ub + n_add_raw <= self._cfg.edge_capacity:
             return
+        self.host_reads["proactive_grow"] += 1
         live = int(et.fill_stats(self._state.edges)[0])
         self._live_ub = live
         n_rem = int(np.sum((kind == dynamic.REM_EDGE)
@@ -341,6 +363,7 @@ class SCCService:
         found, _ = et.lookup(self._state.edges, _ids(ku, self._device),
                              _ids(kv, self._device), self._cfg.max_probes,
                              impl=self._cfg.sparse_impl)
+        self.host_reads["proactive_grow"] += 1
         n_new = int(np.sum(~found.cpu().numpy()[:n_keys]))
         predicted = live + n_new - n_rem
         if predicted <= self._cfg.edge_capacity:
@@ -386,8 +409,10 @@ class SCCService:
         def resolve_oldest():
             nonlocal scanned
             rec = pending.popleft()
-            ok_h, ovf_h, stats_h = dynamic.read_back(rec.ok, rec.ovf,
-                                                     rec.rstats)
+            self.host_reads["read_back"] += 1
+            with trace.span("service.read_back", wait=True):
+                ok_h, ovf_h, stats_h = dynamic.read_back(rec.ok, rec.ovf,
+                                                         rec.rstats)
             if np.any(ovf_h):
                 return rec
             for sl, row in zip(rec.slices, ok_h):
@@ -401,9 +426,11 @@ class SCCService:
         for slices, ops in self._sched.super_chunks(kind, u, v,
                                                     self._scan_lengths):
             entry, entry_gen = state, gen
-            state, ok_dev, ovf, rstats = dynamic.apply_batch_scan(
-                state, ops, self._cfg)
             k = len(slices)
+            with trace.span("service.dispatch") as sp:
+                sp.set("k", k)
+                state, ok_dev, ovf, rstats = dynamic.apply_batch_scan(
+                    state, ops, self._cfg)
             gen += k  # one generation per step
             if k > 1:
                 self.scan_dispatches += 1
@@ -437,7 +464,9 @@ class SCCService:
         self._state, ok_dev, ovf_dev, rstats = dynamic.apply_batch_stats(
             self._state, ops, self._cfg)
         self._gen += 1
-        ok, ovf, stats = dynamic.read_back(ok_dev, ovf_dev, rstats)
+        self.host_reads["read_back"] += 1
+        with trace.span("service.read_back", wait=True):
+            ok, ovf, stats = dynamic.read_back(ok_dev, ovf_dev, rstats)
         self._record_repair(*stats.tolist())
         if int(ovf) == 0:
             return ok
@@ -465,6 +494,7 @@ class SCCService:
         cand = (kind == dynamic.ADD_EDGE) & in_range & ~ok
         if not cand.any():
             return cand
+        self.host_reads["replay"] += 1
         alive = self._state.v_alive.cpu().numpy()
         cand &= alive[np.clip(u, 0, nv - 1)] & alive[np.clip(v, 0, nv - 1)]
         if not cand.any():
@@ -472,12 +502,14 @@ class SCCService:
         found, _ = et.lookup(self._state.edges, ops.u.to(self._device),
                              ops.v.to(self._device), self._cfg.max_probes,
                              impl=self._cfg.sparse_impl)
+        self.host_reads["replay"] += 1
         return cand & ~found.cpu().numpy()
 
     def grow(self, new_capacity: int | None = None):
         """Rehash the edge table into a larger power-of-two capacity."""
         cap = new_capacity or self._cfg.edge_capacity * self._grow_factor
-        table, cap = self._rehash_preserving(cap)
+        with trace.span("service.grow"):
+            table, cap = self._rehash_preserving(cap)
         self._state = self._state._replace(edges=table)
         self._cfg = dataclasses.replace(self._cfg, edge_capacity=cap)
         self.grow_count += 1
@@ -485,6 +517,7 @@ class SCCService:
     def _rehash_preserving(self, cap: int):
         """Rehash into ``cap``, doubling further until every live edge
         survives migration."""
+        self.host_reads["grow"] += 1
         live_before = int(et.fill_stats(self._state.edges)[0])
         for _ in range(_MAX_GROW_ROUNDS):
             if self._max_edge_capacity and cap > self._max_edge_capacity:
@@ -493,6 +526,7 @@ class SCCService:
                     f"({cap} > {self._max_edge_capacity})")
             table = et.rehash(self._state.edges, cap, self._cfg.max_probes,
                               impl=self._cfg.sparse_impl)
+            self.host_reads["grow"] += 1
             live_after = int(et.fill_stats(table)[0])
             if live_after == live_before:
                 self._live_ub = live_after
@@ -503,9 +537,13 @@ class SCCService:
             "max_probes too small for workload?")
 
     def _maybe_compact(self):
-        tomb = int(et.fill_stats(self._state.edges)[1])
+        self.host_reads["compact_check"] += 1
+        with trace.span("service.compact_check", wait=True):
+            tomb = int(et.fill_stats(self._state.edges)[1])
         if tomb > self._compact_tomb_frac * self._cfg.edge_capacity:
-            table, cap = self._rehash_preserving(self._cfg.edge_capacity)
+            with trace.span("service.compact"):
+                table, cap = self._rehash_preserving(
+                    self._cfg.edge_capacity)
             self._state = self._state._replace(edges=table)
             self._cfg = dataclasses.replace(self._cfg, edge_capacity=cap)
             self.compaction_count += 1
@@ -568,4 +606,5 @@ class SCCService:
             "repair_region_v_max": self.repair_region_v_max,
             "repair_region_e_max": self.repair_region_e_max,
             "deduped_resubmits": self.deduped_resubmits,
+            "host_reads": dict(self.host_reads),
         }

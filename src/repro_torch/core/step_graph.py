@@ -66,6 +66,7 @@ import weakref
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import graph_state as gs
 from repro_torch.kernels import _build
 from repro_torch.kernels import graph_cond
@@ -198,7 +199,7 @@ def capture(device, body):
     own capture stream, the body's branch allocations in a pool the graph
     keeps and its kernel launches recorded by region.  Returns ``(graph,
     recorder, pool)``; a failure raises."""
-    with _capture_lock:
+    with trace.span("step.capture"), _capture_lock:
         _free_dead_pools()
         for mode in ("relaxed", "thread_local"):
             graph = torch.cuda.CUDAGraph()
@@ -384,7 +385,4 @@ def clear() -> None:
 
 
 def stats() -> dict:
-    with _cache_lock:
-        n = len(_cache)
-    return {"step_graph_captures": captures, "capture_s": capture_s,
-            "graphs": n}
+    return {"step_graph_captures": captures, "capture_s": capture_s}

@@ -31,6 +31,8 @@ from typing import Dict, Iterable, List, Tuple
 
 import torch
 
+from repro_torch import trace
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("frontier_min", "hash_probe", "bool_matmul", "flash_attention",
@@ -88,8 +90,9 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(_target(name)[1]))
+            with trace.span("kernels.build"):
+                build([name])
+                lib = ctypes.CDLL(str(_target(name)[1]))
             _libs[name] = lib
         return lib
 
