@@ -48,8 +48,9 @@ from typing import Any, Iterable, Iterator, List, NamedTuple, Sequence, \
 import numpy as np
 
 from repro_torch import trace
-from repro_torch.api.ops import (CommunityOf, CommunitySizes, Op, QueryOp,
-                           SccMembers, UpdateOp, encode_updates)
+from repro_torch.api.ops import (UPDATE_CLASSES, CommunityOf,
+                                 CommunitySizes, Op, QueryOp, SccMembers,
+                                 UpdateOp, encode_updates)
 from repro_torch.fault import errors as fault_errors
 
 __all__ = ["GraphClient", "Result", "Consistency", "AtLeast"]
@@ -112,8 +113,8 @@ class Result(NamedTuple):
     Update values are the acceptance booleans of the paper's method
     contracts; query values are per-op scalars/arrays (see
     :mod:`repro_torch.api.ops` for the table).  (A NamedTuple, not a dataclass:
-    results are minted per op on the hot path, and tuple construction is
-    what keeps the facade inside its benchmarked overhead bound.)
+    a run's results are built by one C-level pass of ``tuple.__new__``
+    (:func:`_results`), with no Python frame an op.)
     """
     op: Op
     value: Any
@@ -123,10 +124,23 @@ class Result(NamedTuple):
 # ------------------------------------------------------------- client ----
 
 
-def _runs(ops: Iterable[Op]) -> Iterator[Tuple[str, List[Op]]]:
+def _results(run: Sequence[Op], values: Iterable, gen: int) -> List[Result]:
+    """``[Result(op, value, gen) for op, value in zip(run, values)]`` as
+    C-level iteration: ``tuple.__new__`` over ``zip``, no frame an op."""
+    return list(map(tuple.__new__, itertools.repeat(Result),
+                    zip(run, values, itertools.repeat(gen))))
+
+
+def _runs(ops: Iterable[Op]) -> Iterator[Tuple[str, Sequence[Op]]]:
     """Maximal homogeneous runs: consecutive updates batch into one service
     chunk; consecutive same-kind queries coalesce into one broker request.
     Run boundaries are exactly the client's ordering obligations."""
+    if isinstance(ops, (list, tuple)) and ops \
+            and UPDATE_CLASSES.issuperset(map(type, ops)):
+        # every op is an update of a known class (one C-level type pass):
+        # the sequence is one run as it stands
+        yield "update", ops
+        return
     run: List[Op] = []
     cat = None
     for op in ops:
@@ -300,18 +314,13 @@ class GraphClient:
                 # run-level value decode (one C-level conversion per run,
                 # not one isinstance chain + numpy index per op)
                 with trace.span("client.results"):
-                    gen = int(snap.gen)
-                    if cat == "community_sizes":
-                        hist = np.asarray(snap.value)
-                        results.extend(Result(op, hist, gen) for op in run)
-                    elif cat == "scc_members":
-                        masks = np.asarray(snap.value)
-                        results.extend(Result(op, masks[i], gen)
-                                       for i, op in enumerate(run))
+                    if cat == "community_sizes":  # one histogram for all
+                        vals = itertools.repeat(np.asarray(snap.value))
+                    elif cat == "scc_members":  # a mask row an op
+                        vals = np.asarray(snap.value)
                     else:  # bool / int lanes
                         vals = snap.value.tolist()
-                        results.extend(Result(op, val, gen)
-                                       for op, val in zip(run, vals))
+                    results.extend(_results(run, vals, int(snap.gen)))
         return results
 
     # ---------------------------------------------------------- internals --
@@ -401,7 +410,7 @@ class GraphClient:
                 time.sleep(wait)
         raise AssertionError("unreachable")  # loop always raises/returns
 
-    def _apply_updates(self, run: List[Op],
+    def _apply_updates(self, run: Sequence[Op],
                        deadline_s: float | None = None) -> List[Result]:
         with trace.span("client.encode"):
             kind, u, v = encode_updates(run)
@@ -420,8 +429,7 @@ class GraphClient:
         self._token = max(self._token, gen)
         self.updates_submitted += len(run)
         with trace.span("client.results"):
-            return [Result(op, val, gen)
-                    for op, val in zip(run, np.asarray(ok).tolist())]
+            return _results(run, np.asarray(ok).tolist(), gen)
 
     def _submit_query_run(self, kind: str, run: List[Op], min_gen: int):
         if kind == "community_sizes":

@@ -33,6 +33,7 @@ op                     category   result value
 from __future__ import annotations
 
 import dataclasses
+import operator
 from typing import ClassVar, List, Sequence, Tuple
 
 import numpy as np
@@ -135,6 +136,9 @@ _KIND_TO_CLS = {
     dynamic.ADD_VERTEX: AddVertex,
     dynamic.REM_VERTEX: RemoveVertex,
 }
+# the classes a run can be packed from without a per-op isinstance (exact
+# types: a subclass splits the generic way)
+UPDATE_CLASSES = frozenset(_KIND_TO_CLS.values())
 
 
 # ------------------------------------------------------------- encoders ---
@@ -149,12 +153,13 @@ def encode_updates(ops: Sequence[UpdateOp]
     bucketed scheduler).  Vertex ops carry ``v = 0`` (ignored by the step).
     """
     n = len(ops)
+    # every column is one C-level pass (an attrgetter into fromiter), no
+    # Python frame an op
     try:
-        # fromiter keeps the per-op cost to one attribute read (queries
-        # lack KIND and fail the encode, which is the type check)
-        kind = np.fromiter((op.KIND for op in ops), np.int32, n)
-        u = np.fromiter((op.u for op in ops), np.int32, n)
-        v = np.fromiter((op.v for op in ops), np.int32, n)
+        # queries lack KIND and fail the encode, which is the type check
+        kind = np.fromiter(map(operator.attrgetter("KIND"), ops), np.int32, n)
+        u = np.fromiter(map(operator.attrgetter("u"), ops), np.int32, n)
+        v = np.fromiter(map(operator.attrgetter("v"), ops), np.int32, n)
     except AttributeError as e:
         raise TypeError(f"encode_updates got a non-update op: {e}") from e
     return kind, u, v

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 from repro_torch import api, trace
+from repro_torch.api.client import _runs
 from repro_torch.core import graph_state as gs
 from repro_torch.core.broker import QueryBroker
 from repro_torch.core.service import HOST_READ_SITES, SCCService
@@ -60,8 +61,10 @@ def test_an_update_chunk_nests_under_one_trace_id():
     svc = _service()
     client = _client(svc)
     reads = sum(svc.host_reads.values())
+    ops = _adds(100)
+    assert next(_runs(ops))[1] is ops  # the fast split takes it whole
     trace.enable()
-    res = client.submit_many(_adds(100))  # one scan-4 super-chunk
+    res = client.submit_many(ops)  # one scan-4 super-chunk
     trace.disable()
     spans, dropped = trace.take()
     assert dropped == 0 and len(res) == 100
@@ -87,6 +90,7 @@ def test_an_update_chunk_nests_under_one_trace_id():
     assert waits == {"service.lock_wait", "service.read_back",
                      "service.compact_check"}
     assert [s.attrs for s in by["service.dispatch"]] == [{"k": 4}]
+    assert len(by["client.encode"]) == len(by["client.results"]) == 1
     # one read of the super-chunk's outputs and one compaction test
     assert len(by["service.read_back"]) == 1
     assert sum(svc.host_reads.values()) - reads == 2
