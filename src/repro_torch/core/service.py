@@ -44,10 +44,10 @@ from repro_torch.fault import errors as fault_errors
 _MAX_GROW_ROUNDS = 16
 # where the update path reads the card back (``SCCService.host_reads``):
 # a super-chunk's or a step's outputs, the compaction test's fill count,
-# the grow's fill counts, the replay's failed-lane test and the proactive
-# grow's probe
+# the grow's fill counts, the replay's failed-lane test, the proactive
+# grow's probe and the bulk load's failed and live counts
 HOST_READ_SITES = ("read_back", "compact_check", "grow", "replay",
-                   "proactive_grow")
+                   "proactive_grow", "load")
 
 
 class Snapshot(NamedTuple):
@@ -194,8 +194,60 @@ class SCCService:
         self.repair_tier_steps = {name: 0 for name in dynamic.TIER_NAMES}
         self.repair_region_v_max = 0
         self.repair_region_e_max = 0
+        # the keys the bulk load placed after a grow (:meth:`from_edges`)
+        self.load_replaced_keys = 0
         # device-to-host reads on the update path, by site
         self.host_reads = {site: 0 for site in HOST_READ_SITES}
+
+    @classmethod
+    def from_edges(cls, cfg: gs.GraphConfig, src, dst, **options
+                   ) -> "SCCService":
+        """A service whose committed state holds every distinct ``(src[i],
+        dst[i])`` key, every vertex alive, and its SCC partition: ``cls(cfg,
+        state=dynamic.recompute(gs.from_arrays(cfg, src, dst, None,
+        device)), **options)``, at the same generation, except that no key
+        is lost.  Where keys exhaust the probe bound, the table grows by
+        ``grow_factor``, keeping every placed edge (as grow-and-replay does
+        for an AddEdge), and the failed keys alone are inserted again; the
+        service runs at the grown capacity, and its ``grow_count`` is the
+        load's grows.  Raises ``CapacityExhausted`` past
+        ``max_edge_capacity`` or after ``_MAX_GROW_ROUNDS`` grows."""
+        svc = cls(cfg, **options)
+        with trace.span("service.load") as sp:
+            svc._load(src, dst, sp)
+        return svc
+
+    def _load(self, src, dst, sp):
+        dev, nv = self._device, self._cfg.n_vertices
+        src = torch.as_tensor(src, dtype=torch.int32).to(dev)
+        dst = torch.as_tensor(dst, dtype=torch.int32).to(dev)
+        sp.set("edges", int(src.numel()))
+        self._state = self._state._replace(
+            v_alive=torch.ones(nv, dtype=torch.bool, device=dev))
+        for grows in range(_MAX_GROW_ROUNDS + 1):
+            table, _, failed = et.insert(
+                self._state.edges, src, dst, self._cfg.max_probes,
+                impl=self._cfg.sparse_impl)
+            self._state = self._state._replace(edges=table)
+            self.host_reads["load"] += 1
+            n_failed, live = torch.stack(
+                [failed.sum(), et.fill_stats(table)[0].long()]).tolist()
+            if n_failed == 0:
+                break
+            if grows == _MAX_GROW_ROUNDS:
+                raise fault_errors.CapacityExhausted(
+                    f"bulk load: {n_failed} keys still past the probe "
+                    f"bound after {grows} grows")
+            if grows == 0:  # placed by the rounds that follow
+                self.load_replaced_keys = n_failed
+            src, dst = src[failed], dst[failed]
+            self.grow()
+        sp.set("grows", grows)
+        sp.set("replaced", self.load_replaced_keys)
+        self._state = dynamic.recompute(self._state, self._cfg)
+        self._gen += 1  # recompute bumps the state's generation once
+        self._live_ub = live
+        self._head = (self._state, self._gen)
 
     # ------------------------------------------------------------ state ---
 
@@ -606,5 +658,6 @@ class SCCService:
             "repair_region_v_max": self.repair_region_v_max,
             "repair_region_e_max": self.repair_region_e_max,
             "deduped_resubmits": self.deduped_resubmits,
+            "load_replaced_keys": self.load_replaced_keys,
             "host_reads": dict(self.host_reads),
         }

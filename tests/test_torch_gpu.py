@@ -778,6 +778,28 @@ def test_service_on_card_matches_cpu(cuda):
     assert results[0] == results[1]
 
 
+def test_bulk_load_on_card_matches_cpu(cuda):
+    """``SCCService.from_edges`` on a load that overflows 4 probes: the
+    card's grows, table, labels and counters equal the CPU's."""
+    cfg = tgs.GraphConfig(n_vertices=512, edge_capacity=1024, max_probes=4)
+    g = torch.Generator().manual_seed(4)
+    src = torch.arange(512, dtype=torch.int32).repeat_interleave(2)
+    dst = torch.randint(0, 512, (1024,), generator=g, dtype=torch.int32)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        svc = SCCService.from_edges(cfg, src, dst, device=dev,
+                                    buckets=(64,))
+        st = svc.state
+        runs.append(([c.cpu() for c in st.edges], st.ccid.cpu(),
+                     svc.cfg, svc.gen, svc.stats()))
+    (cols, ccid, c_cfg, gen, stats), want = runs
+    for a, b in zip(cols, want[0]):
+        assert torch.equal(a, b)
+    assert torch.equal(ccid, want[1])
+    assert (c_cfg, gen) == want[2:4] and stats["grows"] >= 1
+    stats.pop("device"), want[4].pop("device")
+    assert stats == want[4]
+
 def test_durable_writer_replica_and_recovery_on_card_match_cpu(cuda,
                                                                tmp_path):
     """A durable writer, one WAL-tailing replica and a crash recovery on

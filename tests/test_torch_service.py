@@ -18,13 +18,15 @@ import pytest
 import torch
 
 from repro import api as japi
+from repro.core import dynamic as jdyn
 from repro.core import graph_state as jgs
 from repro.core.service import SCCService as JService
 from repro.launch import stream as jstream
 from repro_torch import api as tapi
-from repro_torch import carry
+from repro_torch import carry, trace
 from repro_torch.core import graph_state as tgs
 from repro_torch.core.broker import QueryBroker
+from repro_torch.core.service import HOST_READ_SITES
 from repro_torch.core.service import SCCService as TService
 from repro_torch.kernels.frontier_expand import ops as tfops
 from repro_torch.kernels.hash_probe import ops as thops
@@ -229,6 +231,65 @@ def test_entry_points_default_to_cuda():
         with pytest.raises((AssertionError, RuntimeError)):
             TService(cfg)
 
+
+def _crowded_edges():
+    """Out-degree 2 on 512 vertices into 1024 slots under 4 probes: the
+    bulk load overflows."""
+    cfg = tgs.GraphConfig(n_vertices=512, edge_capacity=1024, max_probes=4)
+    g = torch.Generator().manual_seed(4)
+    src = torch.arange(512, dtype=torch.int32).repeat_interleave(2)
+    dst = torch.randint(0, 512, (1024,), generator=g, dtype=torch.int32)
+    return cfg, src, dst
+
+
+def test_bulk_load_span_host_reads_and_counters():
+    """``from_edges`` records one ``service.load`` span with its lanes,
+    grows and re-placed keys, each grow's span inside it, one ``load``
+    read a round, and the two counters in ``stats()``."""
+    cfg, src, dst = _crowded_edges()
+    trace.take()
+    trace.enable()
+    try:
+        svc = TService.from_edges(cfg, src, dst, device="cpu",
+                                  buckets=(64,))
+    finally:
+        trace.disable()
+    spans, dropped = trace.take()
+    assert dropped == 0
+    load, = [s for s in spans if s.name == "service.load"]
+    grows = [s for s in spans if s.name == "service.grow"]
+    assert load.parent == 0 and not load.wait
+    assert load.attrs == {"edges": 1024, "grows": svc.grow_count,
+                          "replaced": svc.load_replaced_keys}
+    assert svc.grow_count >= 1 and len(grows) == svc.grow_count
+    assert all(s.parent == load.id for s in grows)
+    # the first round drops what from_arrays drops; later rounds place it
+    dropped_keys = int(tgs.from_arrays(cfg, src, dst, device="cpu").overflow)
+    assert svc.load_replaced_keys == dropped_keys > 0
+    assert svc.host_reads["load"] == svc.grow_count + 1
+    assert set(svc.host_reads) == set(HOST_READ_SITES)
+    st = svc.stats()
+    assert st["load_replaced_keys"] == svc.load_replaced_keys
+    assert st["grows"] == len(grows)
+    assert st["live_edges"] == len(set(zip(src.tolist(), dst.tolist())))
+    assert st["overflow_total"] == 0 and st["gen"] == 1
+    assert st["edge_capacity"] == svc.cfg.edge_capacity > 1024
+
+
+def test_bulk_load_without_overflow_matches_jax():
+    """Where no key passes the probe bound, ``from_edges`` is the JAX
+    package's ``from_arrays`` and ``recompute``, array for array."""
+    jcfg = jgs.GraphConfig(n_vertices=NV, edge_capacity=256)
+    rng = np.random.default_rng(6)
+    src = np.repeat(np.arange(NV, dtype=np.int32), 2)
+    dst = rng.integers(0, NV, 2 * NV).astype(np.int32)
+    jstate = jdyn.recompute(jgs.from_arrays(jcfg, src, dst), jcfg)
+    tcfg = carry.config_from_dict(dataclasses.asdict(jcfg))
+    svc = TService.from_edges(tcfg, src, dst, device="cpu")
+    got = carry.state_to_numpy(svc.state)
+    for k, want in jax_arrays(jstate).items():
+        np.testing.assert_array_equal(got[k], want, err_msg=k)
+    assert svc.gen == int(jstate.gen) and svc.grow_count == 0
 
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
